@@ -1,0 +1,51 @@
+"""Unified model API, dense family.
+
+Counterpart of ``repro/models/api.py``: ``build_model(cfg)`` returns a
+:class:`Model` of plain functions ``init / forward / init_cache /
+decode_step`` bound to one device.  ``loss`` comes with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.prefill import check_family
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable[..., Any]             # (generator) -> params
+    forward: Callable[..., Any]          # (params, batch) -> (logits, aux)
+    init_cache: Callable[..., Any]       # (batch, seq_len, dtype) -> cache
+    decode_step: Callable[..., Any]      # (params, cache, tokens, pos) -> (logits, cache)
+
+
+def build_model(cfg: ArchConfig, *, use_kernels: bool = True,
+                param_dtype=torch.float32, device: DeviceLike = None) -> Model:
+    """``device`` of None means ``cuda`` (raises without a card)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+
+    def init_fn(gen: torch.Generator):
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        return transformer.init(cfg, gen, dtype=param_dtype)
+
+    def forward_fn(params, batch):
+        return transformer.forward(cfg, params, batch, use_kernels=use_kernels)
+
+    def init_cache_fn(batch, seq_len, dtype=torch.bfloat16):
+        return transformer.init_cache(cfg, batch, seq_len, dtype, device=dev)
+
+    def decode_fn(params, cache, tokens, pos):
+        return transformer.decode_step(cfg, params, cache, tokens, pos)
+
+    return Model(cfg=cfg, device=dev, init=init_fn, forward=forward_fn,
+                 init_cache=init_cache_fn, decode_step=decode_fn)
