@@ -1,4 +1,5 @@
-"""User-facing entry points of the port (serving so far)."""
-from repro_torch.api.facade import generate
+"""User-facing entry points of the port: ``fit`` and ``generate``."""
+from repro_torch.api.config import HarpConfig
+from repro_torch.api.facade import fit, generate
 
-__all__ = ["generate"]
+__all__ = ["HarpConfig", "fit", "generate"]

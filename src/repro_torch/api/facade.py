@@ -1,6 +1,7 @@
-"""The port's facade: ``generate``, the serving half of the pipeline.
+"""The port's facade: ``fit``, the training half of the pipeline, and
+``generate``, the serving half.
 
-Counterpart of ``repro/api/facade.py:generate``, dense family.
+Counterpart of ``repro/api/facade.py:fit`` and ``:generate``, dense family.
 """
 from __future__ import annotations
 
@@ -10,12 +11,17 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.api.config import HarpConfig
 from repro_torch.configs import ArchConfig, get_config
+from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.models.prefill import prefill
 from repro_torch.serve.step import (
     greedy_tokens, gumbel_noise, make_serve_step, sample_tokens,
 )
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.step import make_train_step
+from repro_torch.train.trainer import Trainer
 
 
 def _resolve_arch(arch: Union[str, ArchConfig]) -> ArchConfig:
@@ -25,6 +31,57 @@ def _resolve_arch(arch: Union[str, ArchConfig]) -> ArchConfig:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def fit(arch: Union[str, ArchConfig],
+        config: Optional[HarpConfig] = None, *,
+        train_step: Optional[Callable] = None,
+        state: Optional[Dict[str, Any]] = None,
+        data_cfg: Optional[DataConfig] = None,
+        optimizer: Optional[OptimizerConfig] = None,
+        n_microbatches: int = 1,
+        on_step_time: Optional[Callable] = None,
+        on_straggler: Optional[Callable] = None,
+        log_fn: Callable = print,
+        clock: Optional[Callable[[], float]] = None,
+        start_step: Optional[int] = None,
+        seed: int = 0,
+        device: DeviceLike = None,
+        params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Config -> model -> AdamW -> the fault-tolerant :class:`Trainer` loop.
+
+    Runs on ``cuda`` unless ``device="cpu"``, with the flash kernels on.
+    Pass ``train_step`` + ``state`` to run a custom step function; otherwise
+    the arch's model is built, its params drawn from a generator seeded by
+    ``seed`` (or taken from ``params``, a dict of tensors on the device), and
+    AdamW with ``warmup_steps=min(20, total_steps)``.  ``config.data`` (or a
+    ``DataConfig`` derived from the arch) feeds the deterministic synthetic
+    pipeline.  Returns ``{"final_step", "history", "state"}``; the state is
+    updated in place, step by step."""
+    cfg = config if config is not None else HarpConfig()
+    arch_cfg = _resolve_arch(arch)
+    if train_step is None:
+        opt_cfg = optimizer or OptimizerConfig(
+            warmup_steps=min(20, cfg.trainer.total_steps),
+            total_steps=cfg.trainer.total_steps)
+        step_fn, model, opt_init = make_train_step(
+            arch_cfg, opt_cfg, n_microbatches=n_microbatches,
+            device=resolve_device(device))
+        if params is None:
+            params = model.init(generator(model.device, seed))
+        state = {"params": params, "opt_state": opt_init(params)}
+    else:
+        if state is None:
+            raise TypeError("fit(train_step=...) also needs state=...")
+        step_fn = train_step
+    data = data_cfg or cfg.data or DataConfig(
+        vocab_size=arch_cfg.vocab_size, seq_len=cfg.seq_len,
+        global_batch=cfg.global_batch, seed=seed)
+    trainer = Trainer(cfg.trainer, data, step_fn, state,
+                      on_straggler=on_straggler, on_step_time=on_step_time,
+                      log_fn=log_fn,
+                      clock=clock if clock is not None else time.perf_counter)
+    return trainer.run(start_step)
 
 
 def generate(arch: Union[str, ArchConfig], *,

@@ -1,0 +1,1 @@
+"""Atomic, incremental checkpoints in the reference's on-disk format."""

@@ -4,7 +4,9 @@
 already a numpy array (``jax.tree.map(np.asarray, params)``) and returns the
 same nested dict of tensors; ``params_to_numpy`` is its inverse.  Paths and
 the stacked layout (leading layer axis on ``blocks``) are the reference's,
-so checkpoints and migration layouts line up.
+so checkpoints and migration layouts line up.  ``to_numpy`` and
+``copy_into`` serve the checkpoints: a leaf to a host array, and restored
+host arrays into the tensors of a live state.
 """
 from __future__ import annotations
 
@@ -48,3 +50,29 @@ def params_to_numpy(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return _to_numpy(tree)
+
+
+def to_numpy(leaf: Any) -> np.ndarray:
+    """A tensor (on any device) or array-like leaf -> a host numpy array.
+    A CPU tensor's array shares its memory."""
+    if isinstance(leaf, torch.Tensor):
+        return _to_numpy(leaf)
+    return np.asarray(leaf)
+
+
+@torch.no_grad()
+def copy_into(dst: Any, src: Any) -> Any:
+    """Copy the numpy leaves of ``src`` into the tensors of ``dst``, a tree
+    of the same structure (dicts, lists, tuples, NamedTuples, ``None``), in
+    place on their devices and dtypes.  Returns ``dst``."""
+    if dst is None:
+        return None
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            copy_into(d, s)
+    else:
+        dst.copy_(_to_tensor(src, None, "cpu"))
+    return dst

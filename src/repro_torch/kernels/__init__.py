@@ -6,7 +6,9 @@ reset: a wrapper adds one where it launches its kernel and nowhere else
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                             "flash_attention_bwd_dq": 0,
+                             "flash_attention_bwd_dkv": 0}
 
 
 def reset_launches() -> None:

@@ -1,8 +1,8 @@
 """Public entry points of the port's kernels, in the model layout.
 
 Counterpart of ``repro/kernels/ops.py``: the tuned-block registry (same op
-names and shape keys) and ``flash_attention``.  Launch counts are in
-``repro_torch.kernels.LAUNCHES``.
+names and shape keys) and ``flash_attention`` with its gradient.  Launch
+counts are in ``repro_torch.kernels.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -69,6 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: Optional[int] = None) -> torch.Tensor:
     """Flash attention in model layout. q: (B, T, H, D); k, v: (B, S, KV, D).
 
+    Differentiable on both devices through :class:`FlashAttention`: the
+    forward kernel, and the dq and dk/dv kernels for the backward.
     ``block_q``/``block_k`` of None resolve through the tuned-block registry
     and default to the kernel's own choice when untuned."""
     if block_q is None or block_k is None:
@@ -78,6 +80,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         tq, tk = tuned if tuned else _fa.default_blocks(D)
         block_q = tq if block_q is None else block_q
         block_k = tk if block_k is None else block_k
-    out, _ = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     block_q=block_q, block_k=block_k)
-    return out
+    return _fa.FlashAttention.apply(q, k, v, causal, window, block_q, block_k)

@@ -1,8 +1,8 @@
 """Unified model API, dense family.
 
 Counterpart of ``repro/models/api.py``: ``build_model(cfg)`` returns a
-:class:`Model` of plain functions ``init / forward / init_cache /
-decode_step`` bound to one device.  ``loss`` comes with the training slice.
+:class:`Model` of plain functions ``init / forward / loss / init_cache /
+decode_step`` bound to one device.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.models.prefill import check_family
 
 
@@ -23,12 +24,14 @@ class Model:
     device: torch.device
     init: Callable[..., Any]             # (generator) -> params
     forward: Callable[..., Any]          # (params, batch) -> (logits, aux)
+    loss: Callable[..., Any]             # (params, batch) -> (scalar, metrics)
     init_cache: Callable[..., Any]       # (batch, seq_len, dtype) -> cache
     decode_step: Callable[..., Any]      # (params, cache, tokens, pos) -> (logits, cache)
 
 
 def build_model(cfg: ArchConfig, *, use_kernels: bool = True,
-                param_dtype=torch.float32, device: DeviceLike = None) -> Model:
+                remat: bool = True, param_dtype=torch.float32,
+                device: DeviceLike = None) -> Model:
     """``device`` of None means ``cuda`` (raises without a card)."""
     check_family(cfg)
     dev = resolve_device(device)
@@ -39,7 +42,23 @@ def build_model(cfg: ArchConfig, *, use_kernels: bool = True,
         return transformer.init(cfg, gen, dtype=param_dtype)
 
     def forward_fn(params, batch):
-        return transformer.forward(cfg, params, batch, use_kernels=use_kernels)
+        return transformer.forward(cfg, params, batch, use_kernels=use_kernels,
+                                   remat=remat)
+
+    def loss_fn(params, batch):
+        logits, aux = forward_fn(params, batch)
+        per_tok, acc = softmax_cross_entropy(logits, batch["labels"])
+        mask = batch.get("loss_mask")
+        if mask is None:
+            loss = per_tok.mean()
+            accuracy = acc.mean()
+        else:
+            mask = mask.to(per_tok.dtype)
+            denom = torch.clamp(mask.sum(), min=1.0)
+            loss = (per_tok * mask).sum() / denom
+            accuracy = (acc * mask).sum() / denom
+        total = loss + aux
+        return total, {"loss": loss, "aux_loss": aux, "accuracy": accuracy}
 
     def init_cache_fn(batch, seq_len, dtype=torch.bfloat16):
         return transformer.init_cache(cfg, batch, seq_len, dtype, device=dev)
@@ -48,4 +67,4 @@ def build_model(cfg: ArchConfig, *, use_kernels: bool = True,
         return transformer.decode_step(cfg, params, cache, tokens, pos)
 
     return Model(cfg=cfg, device=dev, init=init_fn, forward=forward_fn,
-                 init_cache=init_cache_fn, decode_step=decode_fn)
+                 loss=loss_fn, init_cache=init_cache_fn, decode_step=decode_fn)

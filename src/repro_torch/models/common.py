@@ -8,7 +8,7 @@ pass loops over that axis.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -121,7 +121,42 @@ def act_dtype_cast(x: torch.Tensor) -> torch.Tensor:
 
 
 def layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked parameter (or cache) tree: views, no copies."""
+    """Layer ``i`` of a stacked parameter (or cache) tree: views, no copies.
+    For the serving path, which runs no backward; see :func:`unstack`."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree, from one ``torch.unbind`` per leaf.
+
+    Under autograd this matters: indexing a stacked leaf once per layer
+    (:func:`layer`) gives each layer a backward that allocates a zero tensor
+    of the whole stacked leaf, while one unbind has a single stacking
+    backward for all layers."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-level cross entropy with f32 statistics.
+
+    logits: (..., V); labels: (...,) int.  Returns (loss, correct@1), both
+    f32: ``loss = lse - logit[label]`` (plus ``z_loss * lse**2``), and the
+    argmax with the first index winning ties."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0].float()
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    acc = (torch.argmax(logits, dim=-1) == labels).float()
+    return loss, acc

@@ -6,18 +6,24 @@ paper's GPT family.  Blocks are parameter-stacked along a leading layer
 axis; the reference's ``lax.scan`` is a Python loop over that axis.  In the
 gemma3 pattern every group holds ``ratio`` local layers then one global
 layer, so layer ``i`` is global iff ``i % (ratio + 1) == ratio``.
+
+``forward(..., remat=True)`` recomputes activations in the backward, as the
+reference's ``jax.checkpoint`` does: per block for plain stacks, per group
+of ``ratio + 1`` layers for the gemma3 pattern.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
     act_dtype_cast, dense_init, embed_init, layer, linear, rms_norm, shard_act,
+    unstack,
 )
 
 Params = Dict[str, Any]
@@ -89,13 +95,30 @@ def lm_head(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     return shard_act(logits, ("batch_head", "seq", "vocab"))
 
 
+def _apply_layers(cfg: ArchConfig, layers: List[Tuple[Params, int]],
+                  h: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+    for p, window in layers:
+        h = _block_apply(cfg, p, h, window=window, use_kernels=use_kernels)
+    return h
+
+
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
-            use_kernels: bool = False):
-    """-> (logits (B,T,V), aux_loss scalar)."""
+            use_kernels: bool = False, remat: bool = True):
+    """-> (logits (B,T,V), aux_loss scalar).
+
+    Layer parameters come from one unbind per stacked leaf (``unstack``).
+    With ``remat`` each checkpointed segment (a block, or a gemma3 group)
+    keeps only its input and recomputes the rest in the backward."""
     h = embed_tokens(cfg, params, batch["tokens"])
-    for i, window in layer_windows(cfg):
-        h = _block_apply(cfg, layer(params["blocks"], i), h, window=window,
-                         use_kernels=use_kernels)
+    layers = list(zip(unstack(params["blocks"], cfg.n_layers),
+                      (w for _, w in layer_windows(cfg))))
+    seg = cfg.local_global_ratio + 1 if cfg.local_global_ratio else 1
+    for s in range(0, cfg.n_layers, seg):
+        if remat:
+            h = checkpoint(_apply_layers, cfg, layers[s:s + seg], h, use_kernels,
+                           use_reentrant=False)
+        else:
+            h = _apply_layers(cfg, layers[s:s + seg], h, use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return lm_head(cfg, params, h), aux
 

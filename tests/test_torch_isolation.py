@@ -35,6 +35,42 @@ def test_every_module_imports_without_jax_or_reference():
     assert int(res.stdout.strip()) >= 20   # every module of the package
 
 
+TRAINING_SLICE = [
+    "repro_torch.api.config", "repro_torch.checkpoint.ckpt",
+    "repro_torch.data.pipeline", "repro_torch.train.optimizer",
+    "repro_torch.train.step", "repro_torch.train.trainer",
+    "repro_torch.kernels.flash_attention", "repro_torch.models.api",
+]
+
+_IMPORT_ONE = """
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+importlib.import_module(sys.argv[1])
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
+assert not leaked, leaked
+"""
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE)
+def test_training_slice_module_imports_without_jax_or_reference(module):
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_fit_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.configs import get_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(get_config("gpt-2b").reduced(), HarpConfig(seq_len=8, global_batch=2))
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.api import generate
     from repro_torch.configs import get_config

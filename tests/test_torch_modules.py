@@ -257,3 +257,43 @@ def test_activation_dtype_policy_casts_at_the_embedding():
     expect = (params["embed"][tokens].to(torch.bfloat16)
               * torch.tensor(cfg.d_model ** 0.5, dtype=torch.bfloat16))
     assert torch.equal(h, expect)
+
+
+@pytest.mark.parametrize("z_loss", [0.0, 1e-4])
+def test_softmax_cross_entropy(z_loss):
+    logits = _np(20, 3, 5, 50, scale=4.0)
+    logits[0, 0, [7, 9]] = 30.0            # a tie: the first index wins
+    labels = np.random.default_rng(21).integers(0, 50, (3, 5))
+    labels[0, 0] = 7
+    jl, ja = jcommon.softmax_cross_entropy(jnp.asarray(logits),
+                                           jnp.asarray(labels), z_loss)
+    tl, ta = tcommon.softmax_cross_entropy(torch.from_numpy(logits),
+                                           torch.from_numpy(labels), z_loss)
+    assert tl.dtype == ta.dtype == torch.float32
+    _close(tl, jl)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    assert ta[0, 0] == 1.0
+
+
+@pytest.mark.parametrize("mask", ["half", "zero"])
+def test_loss_with_loss_mask(mask):
+    """The ``loss_mask`` branch, with its max(sum(mask), 1) denominator."""
+    from repro.configs import get_config as jax_config
+    from repro.models import build_model as jax_build
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = jax_config("gpt-2b").reduced()
+    jmodel = jax_build(cfg)
+    params = jmodel.init(jax.random.PRNGKey(3))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 12)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 12)),
+             "loss_mask": (rng.random((2, 12)) < 0.5).astype(np.float32)
+             * (mask == "half")}
+    jt, jm = jmodel.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    tmodel = build_model(get_config("gpt-2b").reduced(), device="cpu")
+    tt, tm = tmodel.loss(_tree(params), {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(tt, jt)
+    for k in ("loss", "aux_loss", "accuracy"):
+        _close(tm[k], jm[k])
