@@ -29,12 +29,33 @@ each (``{"phase": ...}``):
             bit-equal;
   train_contract  at full width, batch 1 x 256: every gradient of ``loss``
             with the kernels against the same with plain attention;
-  timing    each kernel at its main path's shape (the forward at the prefill
-            and the training shape, the backward kernels at the training
-            shape) against its plain version, a PyTorch call that computes
-            the same (``F.scaled_dot_product_attention`` and its backward,
-            timed only as a yardstick, never called by the port) and the
-            card's bound.
+  kernel    also the SSD intra-chunk kernel (``ssd_intra``, K5) against its
+            plain version in float32 (atol 1e-4, rtol 1e-3) on the
+            reference's property cases, Q = 100, mamba2-2.7b's prefill and
+            training shapes (the prefill one in the model's strided layout),
+            zamba2's N = 64, a ragged P > 64, a chunk whose dt span is
+            above 100 (finite output), Q = 1 and Q = 65;
+  main_ssm  ``generate("mamba2-2.7b", batch=8, prompt_len=512,
+            gen_tokens=32)`` at full width (64 ``ssd_intra`` launches: one
+            per layer in prefill; decode is the plain recurrence);
+  contract_ssm  at full width, prefill then stepwise decode against the
+            full forward's logits, and the forward with K5 against the
+            plain forward;
+  train_ssm ``fit("mamba2-2.7b", HarpConfig(seq_len=1024, global_batch=8,
+            ...))`` for 3 steps at full width, no checkpoint written (128
+            ``ssd_intra`` launches per step: forward and remat recompute;
+            the backward is the plain oracle's VJP); finite losses, step 1's
+            loss against the plain path's;
+  train_contract_ssm  at full width, batch 1 x 512: every gradient of
+            ``loss`` with K5 against the plain version; ``A_log``,
+            ``dt_bias`` and ``in_proj`` gradients finite and non-zero;
+  timing    each kernel at its main path's shape (the flash forward at the
+            prefill and the training shape, the backward kernels at the
+            training shape, K5 at mamba2's prefill and training shapes)
+            against its plain version, a PyTorch call that computes the same
+            (``F.scaled_dot_product_attention`` and its backward, timed only
+            as a yardstick, never called by the port; none exists for K5)
+            and the card's bound.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -88,6 +109,30 @@ FLASH_CASES = [            # the reference's tests/test_kernels.py cases
 GPT2B_PREFILL = (8, 512, 512, 32, 32, 80, True, 0)
 GPT2B_TRAIN = (8, 1024, 1024, 32, 32, 80, True, 0)
 TRAIN_STEPS = 3
+# K5, the SSD intra-chunk kernel: the reference's tolerance (f32, sums in
+# other orders).  Cases (B, nc, Q, H, P, N, decay): "ref" draws the
+# reference's property-test log-decays a = -0.1 |N(0, 1)|; "A=-1" is mamba2
+# at init, a = -dt, whose in-chunk span reaches ~200 at Q = 256; "span"
+# adds 1 to dt, so the span is above 100 in every chunk
+SSD_TOL = (1e-4, 1e-3)
+MAMBA_PREFILL = (8, 2, 256, 80, 64, 128, "A=-1")
+MAMBA_TRAIN = (8, 4, 256, 80, 64, 128, "A=-1")
+SSD_CASES = [
+    (1, 1, 16, 1, 8, 8, "ref"),            # the reference's property space
+    (2, 3, 32, 4, 16, 16, "ref"),
+    (2, 2, 16, 3, 8, 16, "ref"),
+    (1, 3, 32, 2, 16, 8, "ref"),
+    (2, 1, 100, 8, 64, 128, "A=-1"),       # a 100-token prompt: Q = 100
+    MAMBA_PREFILL,
+    MAMBA_TRAIN,
+    (2, 2, 256, 112, 64, 64, "A=-1"),      # zamba2's N = 64
+    (1, 2, 77, 3, 100, 33, "ref"),         # ragged P > 64 and N
+    (1, 2, 256, 4, 64, 128, "span"),       # dt span above 100 in the chunk
+    (1, 3, 1, 2, 8, 8, "ref"),             # a one-token chunk
+    (2, 1, 65, 3, 64, 128, "A=-1"),        # one row past the first tile
+]
+MAMBA_SERVE = dict(batch=8, prompt_len=512, gen_tokens=32)
+MAMBA_TRAIN_BT = (8, 1024)
 EXTRA_CASES = [
     GPT2B_PREFILL,                         # the serving path's shape
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
@@ -361,7 +406,8 @@ def run_train():
 
     want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_dq": cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": cfg.n_layers * TRAIN_STEPS}
+            "flash_attention_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
+            "ssd_intra": 0}
     finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                  for h in hist)
     step1_rel = abs(hist[0]["loss"] - plain_loss0) / abs(plain_loss0)
@@ -500,6 +546,275 @@ def run_timing(gen):
         free_memory()
     return rows
 
+# ---------------------------------------------------------------------------
+# The SSM family: kernel K5 and mamba2-2.7b's main paths
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(case, gen, strided=False):
+    """(xc, dtc, cum, Bc, Cc) on the card.  ``strided``: x, B and C are the
+    chunked views of one fused xBC tensor, as ``ssd_chunked`` hands them to
+    the kernel."""
+    B, nc, Q, H, P, N, decay = case
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if strided:
+        xbc = rnd(B, nc, Q, H * P + 2 * N)
+        x = xbc[..., :H * P].reshape(B, nc, Q, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    else:
+        x, Bm, Cm = rnd(B, nc, Q, H, P), rnd(B, nc, Q, N), rnd(B, nc, Q, N)
+    dt = torch.nn.functional.softplus(rnd(B, nc, Q, H))
+    if decay == "span":
+        dt = dt + 1.0
+    a = -0.1 * rnd(B, nc, Q, H).abs() if decay == "ref" else -dt
+    return x, dt, torch.cumsum(a, dim=2), Bm, Cm
+
+
+def ssd_bound(case):
+    """Least time for K5's work: x, dt, cum, B, C read once and y written
+    once; Q(Q+1)/2 * (2N + 2PH) operations per (b, c) (C B^T once, M x per
+    head) at the f32 peak outside the tensor cores."""
+    B, nc, Q, H, P, N = case[:6]
+    nbytes = 4 * B * nc * Q * (2 * H * P + 2 * H + 2 * N)
+    ops = B * nc * Q * (Q + 1) // 2 * (2 * N + 2 * P * H)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ssd_cases(gen):
+    from repro_torch.kernels.ref import ssd_intra_oracle
+    from repro_torch.kernels.ssd_scan import ssd_intra
+
+    atol, rtol = SSD_TOL
+    failures, errs = [], {}
+    for case in SSD_CASES:
+        inputs = ssd_inputs(case, gen, strided=case == MAMBA_PREFILL)
+        y = ssd_intra(*inputs)
+        torch.cuda.synchronize()
+        ref = ssd_intra_oracle(*inputs)
+        cum = inputs[2]
+        span = (cum[:, :, 0] - cum[:, :, -1]).max().item()
+        finite = bool(torch.isfinite(y).all())
+        err = (y - ref).abs().max().item()
+        ok = finite and torch.allclose(y, ref, atol=atol, rtol=rtol)
+        emit("kernel", kernel="ssd_intra", case=case, dtype="float32",
+             strided=case == MAMBA_PREFILL, max_abs_err=err,
+             max_abs_ref=ref.abs().max().item(), max_cum_span=span,
+             finite=finite, atol=atol, rtol=rtol, ok=ok)
+        if not ok or (case[6] == "span" and span <= 100):
+            failures.append(case)
+        errs[case] = err
+        del inputs, y, ref
+    if failures:
+        raise SystemExit(f"ssd_intra disagrees with its plain version: {failures}")
+    return errs
+
+
+def run_main_ssm():
+    from repro_torch.api import generate
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = get_config("mamba2-2.7b")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = generate("mamba2-2.7b", seed=0, **MAMBA_SERVE)
+    launches = dict(LAUNCHES)
+    toks = res["tokens"]
+    emit("main_ssm", arch="mamba2-2.7b", **MAMBA_SERVE, launches=launches,
+         tokens_shape=list(toks.shape), prefill_s=res["prefill_s"],
+         decode_s=res["decode_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = {k: 0 for k in launches}
+    want["ssd_intra"] = cfg.n_layers
+    if launches != want:
+        raise SystemExit(f"expected {want} launches in mamba2 generate, "
+                         f"got {launches}")
+    shape = (MAMBA_SERVE["batch"], MAMBA_SERVE["gen_tokens"])
+    if toks.shape != shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise SystemExit(f"bad tokens: shape {toks.shape}, "
+                         f"range [{toks.min()}, {toks.max()}]")
+    return launches
+
+
+def run_contract_ssm():
+    """Prefill (two chunks: 290 tokens at chunk 256) plus stepwise decode
+    against the full forward over 300 tokens, and the forward through K5
+    against the plain forward, at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.models.prefill import prefill
+
+    cfg = get_config("mamba2-2.7b")
+    model = build_model(cfg)                       # kernels on, cuda
+    gen = generator(model.device, 1)
+    params = model.init(gen)
+    B, T, t0 = 2, 300, 290
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=model.device)
+    full, _ = model.forward(params, {"tokens": tokens})
+    plain = build_model(cfg, use_kernels=False).forward(params, {"tokens": tokens})[0]
+    finite = bool(torch.isfinite(full).all())
+    kernel_vs_plain = (full - plain).abs().max().item()
+    last, states = prefill(cfg, params, {"tokens": tokens[:, :t0]}, cache_len=T,
+                           use_kernels=True)
+    errs = [(last[:, 0] - full[:, t0 - 1]).abs().max().item()]
+    for t in range(t0, T):
+        lg, states = model.decode_step(params, states, tokens[:, t:t + 1], t)
+        errs.append((lg[:, 0] - full[:, t]).abs().max().item())
+    emit("contract_ssm", arch="mamba2-2.7b", batch=B, tokens=T, prefill_len=t0,
+         logits_shape=list(full.shape), finite=finite,
+         state_shapes={k: list(v.shape) for k, v in states.items()},
+         max_abs_logit=full.abs().max().item(),
+         max_abs_err_decode_vs_forward=max(errs),
+         max_abs_err_kernel_vs_plain_forward=kernel_vs_plain, tol=CONTRACT_TOL)
+    del params, full, plain, states
+    free_memory()
+    if not finite or max(errs) > CONTRACT_TOL or kernel_vs_plain > CONTRACT_TOL:
+        raise SystemExit("ssm serving contract failed at full width")
+
+
+def run_train_ssm():
+    """mamba2-2.7b's training main path at full width, through ``api.fit``;
+    no checkpoint is written (``ckpt_every`` above the step count)."""
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = get_config("mamba2-2.7b")
+    (B, T), seed = MAMBA_TRAIN_BT, 0
+    plain = build_model(cfg, use_kernels=False, remat=False)
+    params = plain.init(generator(plain.device, seed))
+    batch0 = batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, B, seed), 0),
+                             plain.device)
+    with torch.no_grad():
+        plain_loss0 = plain.loss(params, batch0)[0].item()
+    del params, batch0
+    free_memory()
+    mem_before_gb = torch.cuda.memory_allocated() / 1e9
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_ssm_", dir=build_dir)
+    try:
+        config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=1000, log_every=1,
+            ckpt_dir=ckpt_dir))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fit("mamba2-2.7b", config, seed=seed,
+                  log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        written = os.listdir(ckpt_dir)
+        del res["state"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_memory()
+    hist = res["history"]
+    steps = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "lr",
+                                "accuracy")} for h in hist]
+    step_s = [h["time_s"] for h in hist]
+    tok_s = 2 * B * T / (step_s[1] + step_s[2])
+    want = {k: 0 for k in launches}
+    want["ssd_intra"] = 2 * cfg.n_layers * TRAIN_STEPS
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    step1_rel = abs(hist[0]["loss"] - plain_loss0) / abs(plain_loss0)
+    emit("train_ssm", arch="mamba2-2.7b", batch=B, seq_len=T, steps=steps,
+         launches=launches, launches_expected=want,
+         launches_per_step=launches["ssd_intra"] / TRAIN_STEPS, step_s=step_s,
+         tokens_per_s_steps_2_3=tok_s, fit_s=fit_s, peak_mem_gb=peak_gb,
+         mem_allocated_gb={"before_fit": mem_before_gb,
+                           "after_release": torch.cuda.memory_allocated() / 1e9},
+         step1_loss=hist[0]["loss"], plain_loss_step1=plain_loss0,
+         step1_rel_err=step1_rel, step1_tol=STEP1_TOL,
+         checkpoint_files=written, finite=finite)
+    if len(hist) != TRAIN_STEPS or not finite:
+        raise SystemExit(f"ssm training did not give {TRAIN_STEPS} finite steps")
+    if launches != want:
+        raise SystemExit(f"ssm training launches {launches}, expected {want}")
+    if step1_rel > STEP1_TOL:
+        raise SystemExit(f"ssm step 1 loss {hist[0]['loss']} vs the plain "
+                         f"path's {plain_loss0}")
+    if written:
+        raise SystemExit(f"ssm training wrote a checkpoint: {written}")
+    return launches, {"step_s": step_s, "tokens_per_s": tok_s,
+                      "peak_mem_gb": peak_gb}
+
+
+def run_train_contract_ssm():
+    """Every gradient of the loss with K5 against the plain version, at
+    full width (batch 1 x 512: two chunks of 256)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device, value_and_grad
+
+    cfg = get_config("mamba2-2.7b")
+    kern = build_model(cfg)                               # kernels on, remat
+    plain = build_model(cfg, use_kernels=False)
+    params = kern.init(generator(kern.device, 2))
+    batch = batch_to_device(make_batch(DataConfig(cfg.vocab_size, 512, 1, 2), 0),
+                            kern.device)
+    loss_k, _, g_k = value_and_grad(kern.loss, params, batch)
+    loss_p, _, g_p = value_and_grad(plain.loss, params, batch)
+    rel, bad = {}, []
+    for (path, a), (_, b) in zip(_leaves(g_k), _leaves(g_p)):
+        name = ".".join(path)
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        if not bool(torch.isfinite(a).all()):
+            bad.append(f"{name} not finite")
+        if path[-1] in ("A_log", "dt_bias", "in_proj") and not bool(a.abs().sum() > 0):
+            bad.append(f"{name} zero")
+    worst = max(rel.values())
+    emit("train_contract_ssm", arch="mamba2-2.7b", batch=1, seq_len=512,
+         loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+         rel_grad_err=rel, max_rel_grad_err=worst, tol=TRAIN_CONTRACT_TOL,
+         bad_grads=bad)
+    del g_k, g_p, params
+    free_memory()
+    if bad or worst > TRAIN_CONTRACT_TOL:
+        raise SystemExit(f"ssm training contract failed: max rel err {worst}, "
+                         f"{bad}")
+
+
+def run_timing_ssd(gen):
+    from repro_torch.kernels.ref import ssd_intra_oracle
+    from repro_torch.kernels.ssd_scan import ssd_intra
+
+    rows = {}
+    for case in (MAMBA_PREFILL, MAMBA_TRAIN):
+        inputs = ssd_inputs(case, gen, strided=True)
+        plain_a = cuda_ms(lambda: ssd_intra_oracle(*inputs), warmup=1, iters=3)
+        kernel_ms = cuda_ms(lambda: ssd_intra(*inputs))
+        plain_b = cuda_ms(lambda: ssd_intra_oracle(*inputs), warmup=1, iters=3)
+        bound_ms, bound_by = ssd_bound(case)
+        row = dict(case=case, ms=kernel_ms, plain_ms=(plain_a + plain_b) / 2,
+                   library_ms=None,
+                   library_call="none: two masked matmuls with a decay",
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows[case] = row
+        emit("timing", kernel="ssd_intra", dtype="float32", **row,
+             plain_ms_first=plain_a, plain_ms_last=plain_b,
+             share_of_bound=bound_ms / kernel_ms)
+        del inputs
+        free_memory()
+    return rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -528,11 +843,18 @@ def main() -> int:
     gen.manual_seed(0)
     fwd_err = check_kernel_cases(gen)
     bwd_err = check_bwd_kernel_cases(gen)
+    ssd_err = check_ssd_cases(gen)
     serve_launches = run_main_path()
     run_contract()
     train_launches, _ = run_train()
     run_train_contract()
+    free_memory()                                # nothing of gpt-2b stays
+    ssm_serve_launches = run_main_ssm()
+    run_contract_ssm()
+    ssm_train_launches, _ = run_train_ssm()
+    run_train_contract_ssm()
     rows = run_timing(gen)
+    ssd_rows = run_timing_ssd(gen)
 
     def entry(kernel, source, replaces, launches, err, case, **extra):
         r = rows[(kernel, case, "float32")]
@@ -559,6 +881,21 @@ def main() -> int:
               train_launches["flash_attention_bwd_dkv"],
               bwd_err["flash_attention_bwd_dkv"], GPT2B_TRAIN,
               tol=GRAD_TOL["float32"]),
+        {"name": "ssd_intra", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_intra.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:59",
+         "launches": ssm_serve_launches["ssd_intra"],
+         "max_abs_err": ssd_err[MAMBA_PREFILL],
+         **{k: ssd_rows[MAMBA_PREFILL][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": list(MAMBA_PREFILL[:6]), "dtype": "float32",
+         "tol": list(SSD_TOL),
+         "launches_train": ssm_train_launches["ssd_intra"],
+         "train_shape": list(MAMBA_TRAIN[:6]),
+         "train_ms": ssd_rows[MAMBA_TRAIN]["ms"],
+         "train_bound_ms": ssd_rows[MAMBA_TRAIN]["bound_ms"],
+         "train_plain_ms": ssd_rows[MAMBA_TRAIN]["plain_ms"],
+         "train_max_abs_err": ssd_err[MAMBA_TRAIN]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 
 Run from the repository root: ``python3 scripts/torch_profile_fit.py``
 (defaults: full-width gpt-2b, batch 8 x 1024 tokens, 3 steps, the AdamW
-that ``fit`` builds).  Prints JSON lines:
+that ``fit`` builds; ``--arch mamba2-2.7b`` profiles the SSM family).
+Prints JSON lines:
 
   fit      ``fit``'s own history: per-step seconds, loss and grad norm,
            tokens/s over steps 2..N, peak device memory;
@@ -15,8 +16,8 @@ that ``fit`` builds).  Prints JSON lines:
            remat recompute included) and optimizer (the in-place AdamW
            update): seconds and peak device memory of each;
   plain    ``--plain-steps`` steps from the same init and batches with
-           plain attention (``use_kernels=False``): per-step losses beside
-           the kernel path's.
+           the kernels' plain versions (``use_kernels=False``): per-step
+           losses beside the kernel path's.
 
 The Chrome trace of the profiled steps goes to ``--trace-dir`` (default
 ``build/traces``).  Numbers are of the card named in the ``device`` line;
@@ -59,7 +60,8 @@ def free_memory() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="gpt-2b")
+    ap.add_argument("--arch", default="gpt-2b",
+                    choices=["gpt-2b", "mamba2-2.7b"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=3)
@@ -176,7 +178,7 @@ def main() -> int:
     del params, opt_state
     free_memory()
 
-    # ---- the same steps with plain attention ----
+    # ---- the same steps with the kernels' plain versions ----
     if args.plain_steps:
         step_fn, plain, opt_init = make_train_step(
             cfg, OptimizerConfig(warmup_steps=min(20, n), total_steps=n),

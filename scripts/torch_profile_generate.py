@@ -2,8 +2,8 @@
 """Where ``repro_torch.api.generate``'s time goes on one CUDA card.
 
 Run from the repository root: ``python3 scripts/torch_profile_generate.py``
-(defaults: full-width gpt-2b, batch 8, prompt 512, 32 new tokens).  Prints
-JSON lines:
+(defaults: full-width gpt-2b, batch 8, prompt 512, 32 new tokens;
+``--arch mamba2-2.7b`` profiles the SSM family).  Prints JSON lines:
 
   generate   ``generate``'s own prefill_s / decode_tokens_per_s for a cold
              first call and for warm repeats (same seed, same tokens);
@@ -69,7 +69,8 @@ def profile_region(fn, label: str, out_dir: str, top: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="gpt-2b")
+    ap.add_argument("--arch", default="gpt-2b",
+                    choices=["gpt-2b", "mamba2-2.7b"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen-tokens", type=int, default=32)

@@ -1,7 +1,8 @@
 """The port's facade: ``fit``, the training half of the pipeline, and
 ``generate``, the serving half.
 
-Counterpart of ``repro/api/facade.py:fit`` and ``:generate``, dense family.
+Counterpart of ``repro/api/facade.py:fit`` and ``:generate``, dense and SSM
+families.
 """
 from __future__ import annotations
 
@@ -50,7 +51,9 @@ def fit(arch: Union[str, ArchConfig],
         params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Config -> model -> AdamW -> the fault-tolerant :class:`Trainer` loop.
 
-    Runs on ``cuda`` unless ``device="cpu"``, with the flash kernels on.
+    Runs on ``cuda`` unless ``device="cpu"``, with the port's kernels on
+    (flash attention for the dense family, the SSD intra-chunk kernel for
+    the SSM family).
     Pass ``train_step`` + ``state`` to run a custom step function; otherwise
     the arch's model is built, its params drawn from a generator seeded by
     ``seed`` (or taken from ``params``, a dict of tensors on the device), and
@@ -97,7 +100,9 @@ def generate(arch: Union[str, ArchConfig], *,
     own init with a generator seeded by ``seed``, unless ``params`` is given
     (a dict of tensors on the device, e.g. from ``convert.params_from_jax``);
     the prompt is drawn from the same generator unless ``prompt`` (B, P)
-    integer tokens are given.  The KV cache is bfloat16, as in the reference.
+    integer tokens are given.  The dense family's KV cache is bfloat16, as in
+    the reference; the SSM family's decode state is float32 and does not
+    grow with the sequence (``pos`` is unused by its decode step).
 
     Returns ``{"tokens": (B, gen_tokens) int array, "prefill_s",
     "decode_s", "decode_tokens_per_s"}``.  The first generated token comes

@@ -8,7 +8,8 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
-                             "flash_attention_bwd_dkv": 0}
+                             "flash_attention_bwd_dkv": 0,
+                             "ssd_intra": 0}
 
 
 def reset_launches() -> None:

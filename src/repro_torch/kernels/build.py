@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "ssd_intra.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,8 @@
 """Public entry points of the port's kernels, in the model layout.
 
 Counterpart of ``repro/kernels/ops.py``: the tuned-block registry (same op
-names and shape keys) and ``flash_attention`` with its gradient.  Launch
-counts are in ``repro_torch.kernels.LAUNCHES``.
+names and shape keys), ``flash_attention`` and ``ssd_intra``, each with its
+gradient.  Launch counts are in ``repro_torch.kernels.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import ssd_intra_oracle
 
 # ---------------------------------------------------------------------------
 # Tuned-block registry
@@ -81,3 +83,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         block_q = tq if block_q is None else block_q
         block_k = tk if block_k is None else block_k
     return _fa.FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk
+# ---------------------------------------------------------------------------
+
+
+class SSDIntra(torch.autograd.Function):
+    """Differentiable SSD intra-chunk term, the counterpart of the
+    reference's ``custom_vjp`` (``repro/kernels/ops.py:ssd_intra``, whose
+    ``bwd`` at ``:208-211`` is the VJP of the jnp oracle).
+
+    The forward is kernel K5 on a CUDA tensor and the plain version on a CPU
+    tensor, and saves the five inputs.  The backward recomputes the plain
+    oracle under autograd on detached inputs and takes its VJP, as the
+    reference does: there is no backward kernel, so it launches none on
+    either device."""
+
+    @staticmethod
+    def forward(ctx, xc, dtc, cum, Bc, Cc):
+        ctx.save_for_backward(xc, dtc, cum, Bc, Cc)
+        return _ssd.ssd_intra(xc, dtc, cum, Bc, Cc)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = ssd_intra_oracle(*inputs)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, n in zip(inputs, need) if n], g))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def ssd_intra(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
+              Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD term in the model layout, f32 (see
+    ``kernels/ssd_scan.py:ssd_intra``), differentiable through
+    :class:`SSDIntra`."""
+    return SSDIntra.apply(xc, dtc, cum, Bc, Cc)

@@ -3,13 +3,15 @@
 Each follows its kernel's contract exactly, which for flash attention is not
 ``models.attention.attention_ref``'s: masked scores are ``-inf`` (not a
 finite ``-2**30``), and a row with every key masked gets a zero output and
-``lse = -inf``.
+``lse = -inf``.  The SSD intra-chunk term's is ``models.ssm.ssd_intra_ref``.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.models.ssm import ssd_intra_ref
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -114,3 +116,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = flash_attention_bwd_dkv_ref(q, k, v, lse, do, delta,
                                          causal=causal, window=window)
     return dq, dk, dv
+
+
+def ssd_intra_oracle(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
+                     Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
+    """Same contract as the SSD intra-chunk kernel K5 (f32 output)."""
+    return ssd_intra_ref(xc, dtc, cum, Bc, Cc).float()

@@ -1,12 +1,12 @@
 """Prefill: full-sequence forward that RETURNS the serving state.
 
-Counterpart of ``repro/models/prefill.py``, dense family.
+Counterpart of ``repro/models/prefill.py``, dense and SSM families.
 ``prefill(cfg, params, batch, cache_len=None)`` -> (last_logits (B,1,V),
-cache), the cache in ``transformer.init_cache``'s layout, ready for
-``decode_step``.  Each layer's K/V is written straight into a preallocated
-cache (cast to the cache dtype as it lands), where the reference stacks
-every layer's K/V and then pads the stack: that saves a full-precision copy
-of the whole cache.
+cache), the cache in the family's ``init_cache`` layout, ready for
+``decode_step``.  Each layer's K/V (dense, cast to the cache dtype as it
+lands) or final SSD state and conv tail (SSM, f32) is written straight into
+a preallocated cache, where the reference stacks every layer's output of
+the scan: that saves a full-precision copy of the whole cache.
 """
 from __future__ import annotations
 
@@ -17,14 +17,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import attention as attn
-from repro_torch.models import transformer
+from repro_torch.models import mamba_lm, transformer
 from repro_torch.models.common import layer, rms_norm
+from repro_torch.models.ssm import ssm_block
 
 Params = Dict[str, Any]
 
 # families whose prefill waits for a later slice, with the ROADMAP item
 NOT_PORTED = {
-    "ssm": "ROADMAP.md Queue 1 item 6 (SSM, with kernel K5)",
     "moe": "ROADMAP.md Queue 1 item 7 (MoE)",
     "hybrid": "ROADMAP.md Queue 1 item 8 (hybrid, VLM, audio)",
     "vlm": "ROADMAP.md Queue 1 item 8 (hybrid, VLM, audio)",
@@ -33,7 +33,7 @@ NOT_PORTED = {
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILY:
         where = NOT_PORTED.get(cfg.family, "ROADMAP.md")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: {where}")
@@ -86,6 +86,30 @@ def _prefill_dense(cfg, params, batch, cache_len, dtype, use_kernels):
     return transformer.lm_head(cfg, params, h[:, -1:]), cache
 
 
+def _ssm_block_state(cfg, p, h, use_kernels):
+    out, st = ssm_block(
+        p["ssm"], rms_norm(h, p["ln"], cfg.norm_eps),
+        d_inner=cfg.d_inner, d_state=cfg.ssm_state, n_heads=cfg.n_ssm_heads,
+        head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+        use_kernels=use_kernels, norm_eps=cfg.norm_eps, return_state=True)
+    return h + out, st
+
+
+def _prefill_ssm(cfg, params, batch, cache_len, dtype, use_kernels):
+    """States ``{"s": (L,B,H,P,N), "conv": (L,B,K-1,C)}``, f32 whatever the
+    cache dtype (the reference's are the scan's f32 outputs)."""
+    h = transformer.embed_tokens(cfg, params, batch["tokens"])
+    states = mamba_lm.init_cache(cfg, h.shape[0], cache_len, device=h.device)
+    for i in range(cfg.n_layers):
+        h, st = _ssm_block_state(cfg, layer(params["blocks"], i), h, use_kernels)
+        for k, v in st.items():
+            states[k][i] = v
+    return transformer.lm_head(cfg, params, h[:, -1:]), states
+
+
+_FAMILY = {"dense": _prefill_dense, "ssm": _prefill_ssm}
+
+
 def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             cache_len: Optional[int] = None, cache_dtype=torch.bfloat16,
             use_kernels: bool = False) -> Tuple[torch.Tensor, Any]:
@@ -94,4 +118,5 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     cache_len = cache_len or T
     if cache_len < T:
         raise ValueError(f"cache_len {cache_len} < prompt length {T}")
-    return _prefill_dense(cfg, params, batch, cache_len, cache_dtype, use_kernels)
+    return _FAMILY[cfg.family](cfg, params, batch, cache_len, cache_dtype,
+                               use_kernels)

@@ -1,4 +1,4 @@
-"""Serving steps: prefill (build the KV cache) and batched decode.
+"""Serving steps: prefill (build the KV cache or SSM state) and batched decode.
 
 Counterpart of ``repro/serve/step.py`` on one GPU (no sharding rules).
 Temperature sampling is Gumbel-max, ``argmax(logits / T + g)``, the same

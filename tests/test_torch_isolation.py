@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,6 +42,8 @@ TRAINING_SLICE = [
     "repro_torch.train.step", "repro_torch.train.trainer",
     "repro_torch.kernels.flash_attention", "repro_torch.models.api",
 ]
+SSM_SLICE = ["repro_torch.models.ssm", "repro_torch.models.mamba_lm",
+             "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ops"]
 
 _IMPORT_ONE = """
 import importlib, sys
@@ -53,7 +56,7 @@ assert not leaked, leaked
 """
 
 
-@pytest.mark.parametrize("module", TRAINING_SLICE)
+@pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
@@ -114,12 +117,29 @@ def test_generate_takes_injected_params_and_prompt():
     assert (a["tokens"] == b["tokens"]).all()   # greedy: the seed is unused
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
-                                  "zamba2-7b", "llama-3.2-vision-90b",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b",
+                                  "llama-3.2-vision-90b", "whisper-medium"])
 def test_unported_families_name_their_roadmap_item(arch):
     from repro_torch.api import generate
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         generate(arch, reduced=True, batch=1, prompt_len=4, gen_tokens=2,
                  device="cpu")
+
+
+def test_generate_and_fit_mamba_on_cpu_when_asked(tmp_path):
+    """The SSM family serves and trains through the same entry points."""
+    from repro_torch.api import HarpConfig, fit, generate
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import TrainerConfig
+
+    out = generate("mamba2-2.7b", batch=2, prompt_len=40, gen_tokens=4,
+                   reduced=True, device="cpu")
+    assert out["tokens"].shape == (2, 4)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 512)).all()
+    res = fit(get_config("mamba2-2.7b").reduced(),
+              HarpConfig(seq_len=48, global_batch=2, trainer=TrainerConfig(
+                  total_steps=2, ckpt_every=1000, ckpt_dir=str(tmp_path))),
+              device="cpu", log_fn=lambda m: None)
+    assert res["final_step"] == 2
+    assert all(np.isfinite(h["loss"]) for h in res["history"])

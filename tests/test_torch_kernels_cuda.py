@@ -13,7 +13,10 @@ from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_fwd,
 )
-from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+from repro_torch.kernels.ref import (
+    flash_attention_bwd_ref, flash_attention_ref, ssd_intra_oracle,
+)
+from repro_torch.kernels.ssd_scan import ssd_intra
 
 torch.set_num_threads(1)
 
@@ -171,3 +174,116 @@ def test_flash_bwd_kernels_reject_a_launch_they_cannot_make(hopper):
     lse = torch.zeros(65536, 1, 1, device=hopper)
     with pytest.raises(RuntimeError, match="CUDA error"):
         flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk (K5)
+# ---------------------------------------------------------------------------
+
+# the reference's ssd_intra tolerance (tests/test_kernels.py): f32, sums in
+# other orders
+SSD_TOL = dict(atol=1e-4, rtol=1e-3)
+
+# (B, nc, Q, H, P, N, decay): decay "ref" draws the reference's property-test
+# log-decays a = -0.1 |N(0, 1)|; "A=-1" is mamba2 at init, a = -dt, whose
+# in-chunk span reaches ~200 at Q = 256
+SSD_CASES = [
+    (1, 1, 16, 1, 8, 8, "ref"),            # the reference's property space
+    (2, 3, 32, 4, 16, 16, "ref"),
+    (2, 2, 16, 3, 8, 16, "ref"),
+    (1, 3, 32, 2, 16, 8, "ref"),
+    (2, 1, 100, 8, 64, 128, "A=-1"),       # a 100-token prompt: Q = 100
+    (8, 2, 256, 80, 64, 128, "A=-1"),      # mamba2-2.7b prefill, 8 x 512
+    (8, 4, 256, 80, 64, 128, "A=-1"),      # mamba2-2.7b training, 8 x 1024
+    (2, 2, 256, 112, 64, 64, "A=-1"),      # zamba2's N = 64
+    (1, 2, 77, 3, 100, 33, "ref"),         # ragged P > 64 and N
+    (1, 3, 1, 2, 8, 8, "ref"),             # a one-token chunk
+    (2, 1, 65, 3, 64, 128, "A=-1"),        # one row past the first tile
+]
+
+
+def _ssd_inputs(seed, B, nc, Q, H, P, N, decay):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, nc, Q, H, P), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, nc, Q, H)))).astype(np.float32)
+    a = (-dt if decay == "A=-1"
+         else -0.1 * np.abs(rng.standard_normal((B, nc, Q, H)))).astype(np.float32)
+    cum = np.cumsum(a, axis=2, dtype=np.float32)
+    Bm = rng.standard_normal((B, nc, Q, N), np.float32)
+    Cm = rng.standard_normal((B, nc, Q, N), np.float32)
+    return x, dt, cum, Bm, Cm
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(hopper, case):
+    inputs = [torch.from_numpy(a).to(hopper) for a in _ssd_inputs(10, *case)]
+    before = LAUNCHES["ssd_intra"]
+    y = ssd_intra(*inputs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_intra"] == before + 1
+    assert y.shape == inputs[0].shape and y.is_contiguous()
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, ssd_intra_oracle(*inputs), **SSD_TOL)
+
+
+@pytest.mark.cuda_sm90
+def test_ssd_kernel_reads_strided_model_layout(hopper):
+    """x, B and C as the chunked views of one fused xBC tensor, as
+    ``ssd_chunked`` hands them over: strided rows, no copies."""
+    B, nc, Q, H, P, N = 2, 2, 64, 4, 16, 24
+    x, dt, cum, Bm, Cm = (torch.from_numpy(a).to(hopper)
+                          for a in _ssd_inputs(11, B, nc, Q, H, P, N, "A=-1"))
+    xbc = torch.cat([x.reshape(B, nc, Q, H * P), Bm, Cm], dim=-1)
+    xs = xbc[..., :H * P].reshape(B, nc, Q, H, P)
+    bs, cs = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not xs.is_contiguous() and not bs.is_contiguous()
+    y = ssd_intra(xs, dt, cum, bs, cs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ssd_intra_oracle(x, dt, cum, Bm, Cm), **SSD_TOL)
+
+
+@pytest.mark.cuda_sm90
+def test_ssd_kernel_is_finite_where_the_decay_span_overflows_exp(hopper):
+    """dt ~ 2 over a chunk of 256 with A = -1: cum spans ~500 in the chunk,
+    so exp(cum_q - cum_j) above the diagonal would be inf."""
+    x, dt, cum, Bm, Cm = (torch.from_numpy(a).to(hopper)
+                          for a in _ssd_inputs(12, 1, 2, 256, 4, 64, 128, "A=-1"))
+    dt = dt + 1.0
+    cum = torch.cumsum(-dt, dim=2)
+    assert (cum[:, :, 0] - cum[:, :, -1]).min().item() > 100
+    y = ssd_intra(x, dt, cum, Bm, Cm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, ssd_intra_oracle(x, dt, cum, Bm, Cm), **SSD_TOL)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("case", [SSD_CASES[1], SSD_CASES[4]])
+def test_ssd_intra_gradients_match_plain(hopper, case):
+    """ops.ssd_intra on the card: K5 forward, the plain oracle's VJP
+    backward (no kernel launch), equal to autograd through the plain
+    version."""
+    inputs = [torch.from_numpy(a).to(hopper).requires_grad_()
+              for a in _ssd_inputs(13, *case)]
+    g = torch.from_numpy(_ssd_inputs(14, *case)[0]).to(hopper)
+    before = LAUNCHES["ssd_intra"]
+    y = ops.ssd_intra(*inputs)
+    got = torch.autograd.grad((y * g).sum(), inputs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_intra"] == before + 1
+    want = torch.autograd.grad((ssd_intra_oracle(*inputs) * g).sum(), inputs)
+    for name, a, b in zip(("x", "dt", "cum", "B", "C"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=1e-3,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("shape", [(1, 1, 257, 1, 8, 8), (1, 1, 16, 1, 129, 8),
+                                   (1, 1, 16, 1, 8, 129)])
+def test_ssd_kernel_refuses_shapes_beyond_its_limits(hopper, shape):
+    x, dt, cum, Bm, Cm = (torch.from_numpy(a).to(hopper)
+                          for a in _ssd_inputs(15, *shape, "ref"))
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ssd_intra(x, dt, cum, Bm, Cm)

@@ -1,12 +1,17 @@
 """Shared body of the ``tests/test_torch_slice_*.py`` files: the port's whole
-serving slice against the JAX package for one reduced dense arch.
+serving slice against the JAX package for one reduced arch.
 
 Both sides get the same JAX-init params (converted through numpy) and the
-same numpy prompt.  The reference runs its Pallas flash kernel in interpret
-mode (``use_pallas=True``); the port runs with kernels on, which on the CPU
-is the kernel's plain version.  The prompt (80 tokens) is longer than the
-reduced sliding window (64), so gemma3's ring-buffer prefill and windowed
-decode slots are exercised.
+same numpy prompt.  The reference runs its Pallas kernels (flash attention,
+SSD intra-chunk) in interpret mode (``use_pallas=True``); the port runs with
+kernels on, which on the CPU is each kernel's plain version.  The prompt (80
+tokens) is longer than the reduced sliding window (64), so gemma3's
+ring-buffer prefill and windowed decode slots are exercised, and is not a
+multiple of the reduced SSM chunk (32), so the SSD padding is.
+
+The serving state is a KV cache (dense) or ``{"s", "conv"}`` (SSM); the SSM
+state is f32 whatever the cache dtype, on both sides, so the SSM runs only
+the f32 decode (``CACHE_DTYPES``).
 """
 import functools
 
@@ -33,6 +38,7 @@ TOL = 5e-4
 # (2**-8 relative; about 10 of 22016 entries per cache tensor at these
 # sizes), which moves the logits by ~2e-4; 2e-3 leaves a 10x margin
 BF16_TOL = 2e-3
+CACHE_DTYPES = {"ssm": ("float32",)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,7 +54,8 @@ def reference(arch):
                               use_pallas=True)
     step = jax.jit(model.decode_step)
     runs = {}
-    for name, dtype in (("float32", jnp.float32), ("bfloat16", jnp.bfloat16)):
+    for name in CACHE_DTYPES.get(cfg.family, ("float32", "bfloat16")):
+        dtype = getattr(jnp, name)
         # the reference's prefill casts its f32 K/V to the cache dtype
         c = jax.tree.map(lambda x: x.astype(dtype), cache)
         tok = jnp.argmax(last[:, -1:], axis=-1).astype(jnp.int32)
