@@ -49,15 +49,33 @@ each (``{"phase": ...}``):
   train_contract_ssm  at full width, batch 1 x 512: every gradient of
             ``loss`` with K5 against the plain version; ``A_log``,
             ``dt_bias`` and ``in_proj`` gradients finite and non-zero;
+  kernel    also the RMSNorm kernel (``rmsnorm``, K4) against its plain
+            version: the reference's cases (f32 atol 1e-6, bf16 2e-2), its
+            swept blocks on 256 and 200 rows (2e-5), D = 100 on one row, and
+            the full-width hidden states (4096, 2560) and (8192, 2560) in f32
+            (atol 1e-6, rtol 1e-6: sums of 2560 squares in other orders);
+  kbench    after the model phases (each of which launches K4 0 times):
+            ``kbench.collect(shapes="default")`` on the card for the three
+            ops, ``collect_autotuned`` + ``install`` (the entry points then
+            resolve to the winners), ``bench_op`` at the main paths'
+            full-width shapes, the table saved and reloaded, and the tuned
+            blocks cleared;
+  plan      on the host, from that table: the HAPT planner on an H100 mesh
+            plus the paper's A100 and V100 meshes, full gpt-2b and
+            mamba2-2.7b (seq_len 1024, global_batch 64, default
+            ``PlannerConfig``), with kbench off, an empty table (which must
+            price exactly like off) and the card's table;
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
-            training shape, K5 at mamba2's prefill and training shapes)
-            against its plain version, a PyTorch call that computes the same
-            (``F.scaled_dot_product_attention`` and its backward, timed only
-            as a yardstick, never called by the port; none exists for K5)
-            and the card's bound.
+            training shape, K5 at mamba2's prefill and training shapes, K4
+            at the full-width hidden states) against its plain version, a
+            PyTorch call that computes the same
+            (``F.scaled_dot_product_attention`` and its backward,
+            ``F.rms_norm``, timed only as yardsticks, never called by the
+            port; none exists for K5) and the card's bound.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
+model phases assert 0), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; without a card it exits 2 and prints no result.
 """
@@ -131,6 +149,20 @@ SSD_CASES = [
     (1, 3, 1, 2, 8, 8, "ref"),             # a one-token chunk
     (2, 1, 65, 3, 64, 128, "A=-1"),        # one row past the first tile
 ]
+# K4, RMSNorm.  The reference's tolerances (tests/test_kernels.py: f32 atol
+# 1e-6 with numpy's default rtol 1e-7, bf16 2e-2; tests/test_kbench.py: 2e-5
+# across swept blocks).  At D = 2560 the kernel and the plain version sum
+# 2560 squares in other orders: their sums differ by up to ~2e-7 relative,
+# which moves y by ~1e-7 relative plus one rounding, so atol 1e-6 and rtol
+# 1e-7 leave no margin at |y| ~ 5; rtol 1e-6 does
+RMS_TOL = {"float32": (1e-6, 1e-7), "bfloat16": (2e-2, 0.0)}
+RMS_SWEEP_TOL = (2e-5, 2e-5)
+RMS_WIDE_TOL = (1e-6, 1e-6)
+RMS_MAIN = (4096, 2560)                    # gpt-2b / mamba2 hidden, 8 x 512
+RMS_WIDE = [RMS_MAIN, (8192, 2560)]        # and 8 x 1024
+KBENCH_FULL = {"rmsnorm": RMS_MAIN,
+               "flash_attention": GPT2B_PREFILL[:6],
+               "ssd_intra": MAMBA_PREFILL[:6]}
 MAMBA_SERVE = dict(batch=8, prompt_len=512, gen_tokens=32)
 MAMBA_TRAIN_BT = (8, 1024)
 EXTRA_CASES = [
@@ -301,8 +333,10 @@ def run_main_path():
          prefill_s=res["prefill_s"], decode_s=res["decode_s"],
          decode_tokens_per_s=res["decode_tokens_per_s"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if launches["flash_attention_fwd"] != cfg.n_layers:
-        raise SystemExit(f"expected {cfg.n_layers} flash launches in prefill, "
+    want = {k: 0 for k in launches}
+    want["flash_attention_fwd"] = cfg.n_layers
+    if launches != want:
+        raise SystemExit(f"expected {want} launches in gpt-2b generate, "
                          f"got {launches}")
     if toks.shape != (8, 32) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise SystemExit(f"bad tokens: shape {toks.shape}, "
@@ -407,7 +441,7 @@ def run_train():
     want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_dq": cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
-            "ssd_intra": 0}
+            "ssd_intra": 0, "rmsnorm": 0}
     finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                  for h in hist)
     step1_rel = abs(hist[0]["loss"] - plain_loss0) / abs(plain_loss0)
@@ -816,6 +850,229 @@ def run_timing_ssd(gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K4 (RMSNorm), kbench on the card and the planner priced from its table
+# ---------------------------------------------------------------------------
+
+
+def rms_inputs(shape, dtype, gen, w_scale=0.1):
+    x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype))
+    w = 1 + w_scale * torch.randn(shape[-1:], generator=gen, device="cuda")
+    return x, w
+
+
+def rms_bound(shape):
+    """Least time for K4's work: x read once, y written once, w read once
+    (f32), 4 operations per element at the f32 rate."""
+    rows, D = shape
+    nbytes = 4 * (2 * rows * D + D)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * rows * D / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_rmsnorm_cases(gen):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rmsnorm_ref
+
+    # (shape, dtype, block_rows, w_scale, (atol, rtol))
+    cases = [(shape, dtype, None, 0.1, RMS_TOL[dtype])
+             for shape in ((4, 64), (3, 5, 128), (128, 256))
+             for dtype in ("float32", "bfloat16")]
+    cases += [((rows, 128), "float32", br, 1.0, RMS_SWEEP_TOL)
+              for rows in (256, 200) for br in (32, 64, 256)]
+    cases += [((1, 100), "float32", None, 0.1, RMS_TOL["float32"])]
+    cases += [(shape, "float32", None, 0.1, RMS_WIDE_TOL) for shape in RMS_WIDE]
+    failures, errs = [], {}
+    for shape, dtype, br, w_scale, (atol, rtol) in cases:
+        x, w = rms_inputs(shape, dtype, gen, w_scale)
+        y = ops.rmsnorm(x, w, block_rows=br)
+        torch.cuda.synchronize()
+        ref = rmsnorm_ref(x, w)
+        err = (y.float() - ref.float()).abs().max().item()
+        ok = (y.dtype == x.dtype and bool(torch.isfinite(y).all())
+              and torch.allclose(y.float(), ref.float(), atol=atol, rtol=rtol))
+        emit("kernel", kernel="rmsnorm", case=list(shape), dtype=dtype,
+             block_rows=br, max_abs_err=err, atol=atol, rtol=rtol, ok=ok)
+        if not ok:
+            failures.append((shape, dtype, br))
+        if br is None and dtype == "float32":
+            errs[tuple(shape)] = err
+        del x, w, y, ref
+    if failures:
+        raise SystemExit(f"rmsnorm disagrees with its plain version: {failures}")
+    return errs
+
+
+def run_kbench():
+    """kbench on the card: canonical collect, autotune + install, the main
+    paths' full-width shapes, and the table's round trip."""
+    from repro_torch.kbench import autotune, harness
+    from repro_torch.kbench.table import LatencyTable
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+
+    trials, warmup = 20, 3
+    fp = harness.device_fingerprint()
+    kernel_of = {"flash_attention": "flash_attention_fwd", "rmsnorm": "rmsnorm",
+                 "ssd_intra": "ssd_intra"}
+    reset_launches()
+    t0 = time.perf_counter()
+    # 1. the canonical collect: each op's launches grow by warmup + trials
+    table = LatencyTable()
+    grew = {}
+    for op in sorted(harness.OPS):
+        before = LAUNCHES[kernel_of[op]]
+        table = table.merge(harness.collect([op], shapes="default",
+                                            trials=trials, warmup=warmup))
+        grew[op] = LAUNCHES[kernel_of[op]] - before
+    collected = list(table.entries)
+    # 2. the autotuner's winners, installed into the entry points' registry
+    tuned, sweeps = autotune.collect_autotuned(shapes="default", trials=trials,
+                                               warmup=warmup)
+    n_installed = autotune.install(tuned)
+    resolved = {sw.op: ops.tuned_blocks(sw.op, sw.shape) for sw in sweeps}
+    x, w = rms_inputs(harness.OPS["rmsnorm"].default_shape, "float32",
+                      torch.Generator(device="cuda").manual_seed(3))
+    before = LAUNCHES["rmsnorm"]
+    ops.rmsnorm(x, w)                  # block_rows=None -> the winner
+    torch.cuda.synchronize()
+    tuned_call_launched = LAUNCHES["rmsnorm"] - before
+    del x, w
+    # 3. the main paths' full-width shapes, at the blocks the entry points
+    # resolve to with the winners installed
+    full = []
+    for op, shape in sorted(KBENCH_FULL.items()):
+        blocks = (ops.tuned_blocks(op, shape)
+                  or harness.OPS[op].default_blocks(shape))
+        full.append(harness.measurement(harness.bench_op(
+            op, shape, blocks=blocks, trials=trials, warmup=warmup)))
+        table.add(full[-1])
+    table = table.merge(tuned)
+    # 4. save, reload, compare
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="kbench_", suffix=".json", dir=build_dir)
+    os.close(fd)
+    try:
+        table.save(path)
+        round_trip = LatencyTable.load(path).to_dict() == table.to_dict()
+    finally:
+        os.unlink(path)
+    ops.clear_tuned_blocks()
+    launches = dict(LAUNCHES)
+    seconds = time.perf_counter() - t0
+
+    def cell(e):
+        return {"op": e.op, "shape": list(e.shape), "blocks": e.blocks,
+                "median_s": e.median_s, "flops": e.flops,
+                "tflops": e.flops / e.median_s / 1e12 if e.median_s > 0 else None}
+    emit("kbench", fingerprint=fp, trials=trials, warmup=warmup,
+         collected=[cell(e) for e in collected], launches_grew=grew,
+         sweeps=[{"op": sw.op, "shape": list(sw.shape),
+                  "best_blocks": sw.best_blocks, "best_s": sw.best_s,
+                  "default_blocks": sw.default_blocks, "default_s": sw.default_s,
+                  "speedup": sw.speedup,
+                  "sweep": [[b, t] for b, t in sw.sweep]} for sw in sweeps],
+         installed=n_installed, resolved=resolved,
+         full_width=[cell(e) for e in full],
+         table_cells=len(table), table_round_trip=round_trip,
+         table_fingerprint=table.fingerprint(), launches=launches,
+         seconds=seconds, table=table.to_dict())
+    bad = [e for e in table.entries if not e.device.startswith("cuda:")
+           or not e.median_s > 0]
+    if bad:
+        raise SystemExit(f"kbench cells not measured on the card: {bad}")
+    if sorted(e.op for e in collected) != sorted(harness.OPS):
+        raise SystemExit(f"kbench collected {[e.op for e in collected]}")
+    if any(n != trials + warmup for n in grew.values()):
+        raise SystemExit(f"launches grew by {grew}, expected {trials + warmup} each")
+    want = {sw.op: sw.best_blocks for sw in sweeps if sw.best_blocks}
+    if {op: resolved[op] for op in want} != want or n_installed != len(want):
+        raise SystemExit(f"installed winners {want} resolve to {resolved}")
+    if tuned_call_launched != 1:
+        raise SystemExit("ops.rmsnorm with the winner installed did not launch K4")
+    if not round_trip:
+        raise SystemExit("the kbench table did not round-trip through JSON")
+    return table, fp, launches
+
+
+def h100_fleet():
+    """An H100 mesh (one host, two cards on NVLink) in front of the paper's
+    case-study A100 (2 x 2) and V100 (1 x 2) meshes, 5 Gbps across."""
+    from repro_torch.core.cluster import (
+        GBPS, H100_80G, HeteroCluster, SubCluster, paper_case_study_cluster,
+    )
+    base = paper_case_study_cluster()
+    h100 = SubCluster("meshH100", 1, 2, H100_80G, 450e9, 200 * GBPS)
+    return HeteroCluster(subclusters=(h100,) + base.subclusters,
+                         cross_bw=base.cross_bw)
+
+
+def run_plan(table, fp):
+    """The HAPT planner on the host, priced three ways from the same fleet."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import HAPTPlanner, PlannerConfig
+    from repro_torch.kbench.bridge import KBenchConfig, KBenchModel
+
+    fleet = h100_fleet()
+    measured = KBenchConfig(table=table.to_dict(), device_map={"H100-80G": fp})
+    model = KBenchModel(measured)
+    mfu = {s.name: model.measured_mfu(s) for s in fleet.subclusters}
+    for arch in ("gpt-2b", "mamba2-2.7b"):
+        plans = {}
+        for kind, kb in (("off", None), ("empty", KBenchConfig()),
+                         ("table", measured)):
+            t0 = time.perf_counter()
+            strategy = HAPTPlanner(fleet, PlannerConfig(kbench=kb)).plan(
+                get_config(arch), seq_len=1024, global_batch=64)
+            plan_s = time.perf_counter() - t0
+            d = json.loads(strategy.to_json())
+            d["planner_meta"] = {k: v for k, v in d["planner_meta"].items()
+                                 if not k.startswith("time_")}
+            plans[kind] = d
+            emit("plan", arch=arch, kbench=kind, seq_len=1024, global_batch=64,
+                 est_step_time=strategy.est_step_time, plan_s=plan_s,
+                 stages=[{"subcluster": fleet.subclusters[st.cluster_idx].name,
+                          "layers": st.layer_end - st.layer_start,
+                          "mesh": [st.mesh_n, st.mesh_m], "tp": st.tp,
+                          "dp": st.dp, "t_f": st.t_f, "t_b": st.t_b}
+                         for st in strategy.stages],
+                 measured_mfu=mfu if kind == "table" else None,
+                 kbench_stamp=d["planner_meta"].get("kbench"))
+        empty = dict(plans["empty"], planner_meta={
+            k: v for k, v in plans["empty"]["planner_meta"].items() if k != "kbench"})
+        if empty != plans["off"]:
+            raise SystemExit(f"{arch}: an empty kbench table priced unlike kbench=None")
+        stamp = plans["table"]["planner_meta"]["kbench"]
+        if fp not in stamp["covered_devices"] or mfu["meshH100"] is None:
+            raise SystemExit(f"{arch}: the card's table does not cover H100-80G: "
+                             f"{stamp}")
+
+
+def run_timing_rmsnorm(gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rmsnorm_ref
+
+    rows = {}
+    for shape in RMS_WIDE:
+        x, w = rms_inputs(shape, "float32", gen)
+        plain_a = cuda_ms(lambda: rmsnorm_ref(x, w), warmup=1, iters=5)
+        kernel_ms = cuda_ms(lambda: ops.rmsnorm(x, w))
+        library_ms = cuda_ms(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6))
+        plain_b = cuda_ms(lambda: rmsnorm_ref(x, w), warmup=1, iters=5)
+        bound_ms, bound_by = rms_bound(shape)
+        row = dict(case=list(shape), ms=kernel_ms, plain_ms=(plain_a + plain_b) / 2,
+                   library_ms=library_ms, library_call="F.rms_norm",
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows[shape] = row
+        emit("timing", kernel="rmsnorm", dtype="float32", **row,
+             plain_ms_first=plain_a, plain_ms_last=plain_b,
+             share_of_bound=bound_ms / kernel_ms)
+        del x, w
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -844,6 +1101,7 @@ def main() -> int:
     fwd_err = check_kernel_cases(gen)
     bwd_err = check_bwd_kernel_cases(gen)
     ssd_err = check_ssd_cases(gen)
+    rms_err = check_rmsnorm_cases(gen)
     serve_launches = run_main_path()
     run_contract()
     train_launches, _ = run_train()
@@ -853,8 +1111,12 @@ def main() -> int:
     run_contract_ssm()
     ssm_train_launches, _ = run_train_ssm()
     run_train_contract_ssm()
+    free_memory()
+    table, fp, kbench_launches = run_kbench()
+    run_plan(table, fp)
     rows = run_timing(gen)
     ssd_rows = run_timing_ssd(gen)
+    rms_rows = run_timing_rmsnorm(gen)
 
     def entry(kernel, source, replaces, launches, err, case, **extra):
         r = rows[(kernel, case, "float32")]
@@ -896,6 +1158,25 @@ def main() -> int:
          "train_bound_ms": ssd_rows[MAMBA_TRAIN]["bound_ms"],
          "train_plain_ms": ssd_rows[MAMBA_TRAIN]["plain_ms"],
          "train_max_abs_err": ssd_err[MAMBA_TRAIN]},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:32",
+         "launches": kbench_launches["rmsnorm"],
+         "max_abs_err": rms_err[RMS_MAIN],
+         **{k: rms_rows[RMS_MAIN][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": list(RMS_MAIN), "dtype": "float32", "tol": list(RMS_WIDE_TOL),
+         "launches_path": "kbench (collect, autotune, full-width bench_op)",
+         "launches_main": {"main": serve_launches["rmsnorm"],
+                           "train": train_launches["rmsnorm"],
+                           "main_ssm": ssm_serve_launches["rmsnorm"],
+                           "train_ssm": ssm_train_launches["rmsnorm"]},
+         "wide_shape": list(RMS_WIDE[1]),
+         "wide_ms": rms_rows[RMS_WIDE[1]]["ms"],
+         "wide_bound_ms": rms_rows[RMS_WIDE[1]]["bound_ms"],
+         "wide_plain_ms": rms_rows[RMS_WIDE[1]]["plain_ms"],
+         "wide_library_ms": rms_rows[RMS_WIDE[1]]["library_ms"],
+         "wide_max_abs_err": rms_err[RMS_WIDE[1]]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

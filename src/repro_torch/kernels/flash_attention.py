@@ -33,6 +33,7 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 256
 ROWS_PER_WARP = 4     # kRows in the source
 MAX_BLOCK_Q = 64      # kRows * kMaxWarps in the source
+MAX_SHARED_BYTES = 232448   # a block's dynamic shared memory on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
@@ -43,6 +44,14 @@ def default_blocks(head_dim: int) -> Tuple[int, int]:
     """(block_q, block_k) when nothing is tuned: 32 query rows (8 warps),
     and 64 keys unless wide heads need the shared memory (D > 128)."""
     return 32, (64 if head_dim <= 128 else 32)
+
+
+def fits_shared_memory(head_dim: int, block_q: int, block_k: int) -> bool:
+    """Whether the forward kernel's f32 tiles of q (block_q rows), k and v
+    (block_k rows, k's padded) fit a block's 227 KB of shared memory."""
+    dp = (head_dim + 3) // 4 * 4
+    ks = dp if dp % 8 == 4 else dp + 4
+    return 4 * (block_q * dp + block_k * ks + block_k * head_dim) <= MAX_SHARED_BYTES
 
 
 def _kernel():

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/ops.py``: the tuned-block registry (same op
 names and shape keys), ``flash_attention`` and ``ssd_intra``, each with its
-gradient.  Launch counts are in ``repro_torch.kernels.LAUNCHES``.
+gradient, and ``rmsnorm`` (forward only, as the reference's).  Launch counts
+are in ``repro_torch.kernels.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import ssd_intra_oracle
 
@@ -124,3 +126,25 @@ def ssd_intra(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     ``kernels/ssd_scan.py:ssd_intra``), differentiable through
     :class:`SSDIntra`."""
     return SSDIntra.apply(xc, dtc, cum, Bc, Cc)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            block_rows: Optional[int] = None) -> torch.Tensor:
+    """x: (..., D) any leading dims; w: (D,).  Output in x's dtype.
+
+    ``block_rows`` of None resolves through the tuned-block registry under
+    (rows, D) and defaults to 128.  K4 masks its last row tile, so any block
+    works at any row count (the reference halves it until it divides)."""
+    shape = x.shape
+    D = shape[-1]
+    rows = math.prod(shape[:-1])
+    if block_rows is None:
+        tuned = tuned_blocks("rmsnorm", (rows, D))
+        block_rows = tuned[0] if tuned else _rn.DEFAULT_BLOCK_ROWS
+    return _rn.rmsnorm(x.reshape(rows, D), w, eps=eps,
+                       block_rows=block_rows).reshape(shape)

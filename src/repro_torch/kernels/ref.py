@@ -3,7 +3,8 @@
 Each follows its kernel's contract exactly, which for flash attention is not
 ``models.attention.attention_ref``'s: masked scores are ``-inf`` (not a
 finite ``-2**30``), and a row with every key masked gets a zero output and
-``lse = -inf``.  The SSD intra-chunk term's is ``models.ssm.ssd_intra_ref``.
+``lse = -inf``.  The SSD intra-chunk term's is ``models.ssm.ssd_intra_ref``,
+RMSNorm's is ``models.common.rms_norm``.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.models.common import rms_norm
 from repro_torch.models.ssm import ssd_intra_ref
 
 
@@ -122,3 +124,10 @@ def ssd_intra_oracle(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
                      Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
     """Same contract as the SSD intra-chunk kernel K5 (f32 output)."""
     return ssd_intra_ref(xc, dtc, cum, Bc, Cc).float()
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Same contract as the RMSNorm kernel K4: f32 statistics, output in
+    x's dtype."""
+    return rms_norm(x, w, eps)

@@ -56,11 +56,47 @@ assert not leaked, leaked
 """
 
 
-@pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE)
+KBENCH_SLICE = [
+    "repro_torch.kernels.rmsnorm", "repro_torch.kbench",
+    "repro_torch.kbench.table", "repro_torch.kbench.bridge",
+    "repro_torch.kbench.harness", "repro_torch.kbench.autotune",
+    "repro_torch.comm", "repro_torch.comm.topology",
+    "repro_torch.comm.algorithms", "repro_torch.comm.netsim",
+    "repro_torch.comm.selector", "repro_torch.core",
+    "repro_torch.core.cluster", "repro_torch.core.strategy",
+    "repro_torch.core.opgraph", "repro_torch.core.layering",
+    "repro_torch.core.costmodel", "repro_torch.core.profiler",
+    "repro_torch.core.h1f1b", "repro_torch.core.pipesim",
+    "repro_torch.core.dp_search", "repro_torch.core.planner",
+]
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + KBENCH_SLICE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+_IMPORT_WITHOUT_TOOLCHAIN = """
+import shutil, sys
+sys.modules["triton"] = None
+assert shutil.which("nvcc") is None
+from repro_torch.kbench import autotune, harness
+from repro_torch.core import planner
+from repro_torch.kernels import build
+assert not build._LOADED, build._LOADED
+assert "triton" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+"""
+
+
+def test_kbench_imports_without_nvcc_or_triton():
+    """Kernels build at their first launch, never when a module imports."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               PATH=os.path.dirname(sys.executable))
+    res = subprocess.run([sys.executable, "-c", _IMPORT_WITHOUT_TOOLCHAIN],
+                         env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 
 

@@ -9,12 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kbench import harness
 from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_fwd,
 )
 from repro_torch.kernels.ref import (
-    flash_attention_bwd_ref, flash_attention_ref, ssd_intra_oracle,
+    flash_attention_bwd_ref, flash_attention_ref, rmsnorm_ref, ssd_intra_oracle,
 )
 from repro_torch.kernels.ssd_scan import ssd_intra
 
@@ -287,3 +289,98 @@ def test_ssd_kernel_refuses_shapes_beyond_its_limits(hopper, shape):
                           for a in _ssd_inputs(15, *shape, "ref"))
     with pytest.raises(ValueError, match="the kernel takes"):
         ssd_intra(x, dt, cum, Bm, Cm)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (K4)
+# ---------------------------------------------------------------------------
+
+# the reference's tolerances: f32 atol 1e-6 (numpy's default rtol 1e-7),
+# bf16 2e-2 (tests/test_kernels.py); 2e-5 across swept blocks
+# (tests/test_kbench.py)
+RMS_TOL = {"float32": dict(atol=1e-6, rtol=1e-7),
+           "bfloat16": dict(atol=2e-2, rtol=0.0)}
+# at D = 2560 the kernel and the plain version sum 2560 squares in other
+# orders: the sums differ by up to ~2e-7 relative, which moves y by ~1e-7
+# relative plus one rounding; rtol 1e-7 leaves no margin at |y| ~ 5
+RMS_WIDE_TOL = dict(atol=1e-6, rtol=1e-6)
+
+# (x shape, dtype): the reference's cases, ragged and vector-unfriendly
+# widths, one row, and the full-width hidden states of gpt-2b / mamba2
+RMS_CASES = [((4, 64), "float32"), ((3, 5, 128), "float32"),
+             ((128, 256), "float32"), ((4, 64), "bfloat16"),
+             ((3, 5, 128), "bfloat16"), ((128, 256), "bfloat16"),
+             ((1, 100), "float32"), ((200, 100), "float32"),
+             ((33, 99), "bfloat16"), ((17, 99), "float32"),
+             ((4096, 2560), "float32"), ((8192, 2560), "float32")]
+
+
+def _rms_inputs(seed, shape, dtype, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32))
+    w = torch.from_numpy((1 + 0.1 * rng.standard_normal(shape[-1:])).astype(np.float32))
+    return x.to(device, getattr(torch, dtype)), w.to(device)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("shape,dtype", RMS_CASES)
+def test_rmsnorm_kernel_matches_plain_version(hopper, shape, dtype):
+    x, w = _rms_inputs(20, shape, dtype, hopper)
+    before = LAUNCHES["rmsnorm"]
+    y = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsnorm"] == before + 1
+    assert y.shape == x.shape and y.dtype == x.dtype
+    tol = RMS_WIDE_TOL if shape[-1] > 256 else RMS_TOL[dtype]
+    torch.testing.assert_close(y.float(), rmsnorm_ref(x, w).float(), **tol)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("block_rows", [1, 32, 64, 128, 256])
+@pytest.mark.parametrize("rows", [256, 200, 1])     # incl. non-multiple rows
+def test_rmsnorm_kernel_correct_for_every_block(hopper, block_rows, rows):
+    x, w = _rms_inputs(21, (rows, 128), "float32", hopper)
+    y = ops.rmsnorm(x, w, block_rows=block_rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, rmsnorm_ref(x, w), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_strided_rows_and_weight_dtypes(hopper, w_dtype):
+    """Rows read through a stride (a slice of a wider tensor), bf16 x with
+    w in f32 or bf16."""
+    wide, w = _rms_inputs(22, (64, 200), "bfloat16", hopper)
+    x = wide[:, 8:136]                       # stride 200, width 128
+    w = w[:128].to(getattr(torch, w_dtype))
+    y = rn.rmsnorm(x, w, block_rows=16)
+    torch.cuda.synchronize()
+    assert y.is_contiguous()
+    torch.testing.assert_close(y.float(), rmsnorm_ref(x, w).float(),
+                               **RMS_TOL["bfloat16"])
+
+
+@pytest.mark.cuda_sm90
+def test_rmsnorm_kernel_refuses_what_it_cannot_take(hopper):
+    x, w = _rms_inputs(23, (8, 64), "float32", hopper)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rmsnorm(x.t().contiguous().t(), w)
+    with pytest.raises(TypeError, match="float16"):
+        rn.rmsnorm(x.half(), w)
+    with pytest.raises(ValueError, match="one device"):
+        rn.rmsnorm(x, w.cpu())
+    before = LAUNCHES["rmsnorm"]
+    overlapping = x.as_strided((8, 64), (32, 1))   # row stride below D
+    with pytest.raises(RuntimeError, match="rmsnorm failed: CUDA error"):
+        rn.rmsnorm(overlapping, w)
+    assert LAUNCHES["rmsnorm"] == before
+
+
+@pytest.mark.cuda_sm90
+def test_kbench_collects_rmsnorm_on_the_card(hopper):
+    before = LAUNCHES["rmsnorm"]
+    t = harness.collect(["rmsnorm"], trials=3, warmup=2)
+    assert LAUNCHES["rmsnorm"] == before + 5
+    (e,) = t.entries
+    assert e.device == f"cuda:{torch.cuda.get_device_name(0)}"
+    assert e.median_s > 0 and e.shape == (256, 128) and e.blocks == (128,)
