@@ -6,13 +6,21 @@ It imports nothing of JAX or of the JAX package.  Phases, one JSON line
 each (``{"phase": ...}``):
 
   device    card name, count and ``nvidia-smi`` name / power limit;
-  build     compiles every CUDA source of the port with nvcc (seconds);
+  build     compiles every CUDA source of the port with nvcc (seconds,
+            ptxas registers and spills of what this run compiled) and reads
+            each backward kernel's tensor-core instructions (HMMA,
+            ``cuobjdump -sass``) and registers, stack and local memory
+            (``cuobjdump -res-usage``) from the built library, so a cached
+            build is checked too; fails on local memory or stack (spills) in
+            a backward kernel, on one without HMMA, or where the wrapper's
+            size of a backward block differs from the kernels' own;
   kernel    each kernel against its plain PyTorch version on the card, on
             the reference's flash cases plus the shapes of the serving and
             the training path: the forward in float32 (tolerance 2e-5) and
             bfloat16 (2e-2), out and lse; the backward's dq kernel (dq) and
             dk/dv kernel (dk, dv) in float32 (atol 5e-5, rtol 1e-3) and
-            bfloat16 (atol 4e-3, rtol 8e-3);
+            bfloat16 (atol 4e-3, rtol 8e-3), with each one's largest error as
+            a share of its element's tolerance;
   main      ``repro_torch.api.generate("gpt-2b", batch=8, prompt_len=512,
             gen_tokens=32)`` at full width with launch counts reset just
             before and read just after (32 flash launches: one per layer);
@@ -72,7 +80,12 @@ each (``{"phase": ...}``):
             PyTorch call that computes the same
             (``F.scaled_dot_product_attention`` and its backward,
             ``F.rms_norm``, timed only as yardsticks, never called by the
-            port; none exists for K5) and the card's bound.
+            port; none exists for K5) and the card's bound (the backward
+            kernels' f32 operations at the 3xTF32 rate they run at, 165
+            TFLOP/s; ``bound_simt_ms`` keeps the CUDA-core rate, 67
+            TFLOP/s), and K2 + K3 together against the library's backward,
+            with the CUDA kernels that one library call runs (one
+            ``torch.profiler`` pass).
 
 Then the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
 model phases assert 0), the ``nvidia-smi`` line, and last
@@ -85,6 +98,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -98,6 +112,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# f32 products on the tensor cores as three TF32 products each (3xTF32, the
+# backward kernels' scheme): a third of the 495 TFLOP/s dense TF32 rate.  The
+# backward kernels' f32 bound is taken at this rate
+PEAK_3XTF32 = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # gradients: the reference's f32 gradient tolerance (tests/test_kernels.py).
@@ -184,6 +202,55 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def kernel_resources(source: str) -> dict:
+    """Per kernel of a built library: its tensor-core instructions (``hmma``,
+    from ``cuobjdump -sass``: whether its products run there) and its
+    registers, stack and local memory (``cuobjdump -res-usage``; ptxas spills
+    to local memory)."""
+    from repro_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    lib = str(build.library_path(source))
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, check=True).stdout
+    res, name = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            res[name] = {"hmma": 0}
+        elif name is not None and "HMMA" in line:
+            res[name]["hmma"] += 1
+    name = None
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+?):", line)
+        name = m.group(1) if m else name
+        fields = re.findall(r"\b(REG|STACK|SHARED|LOCAL):(\d+)", line)
+        if name is not None and fields:
+            res.setdefault(name, {"hmma": 0}).update(
+                (k.lower(), int(v)) for k, v in fields)
+    return res
+
+
+def check_bwd_build(res: dict) -> None:
+    """Every backward kernel runs HMMA and uses no local memory or stack, and
+    the wrapper's size of each backward block is the kernels' own."""
+    from repro_torch.kernels.flash_attention import (
+        MAX_HEAD_DIM, bwd_blocks, bwd_kernel_shared_bytes, bwd_shared_bytes,
+    )
+    bwd = {n: r for n, r in res.items() if "flash_bwd" in n}
+    bad = [(n, r) for n, r in bwd.items()
+           if not r["hmma"] or r.get("local", 1) or r.get("stack", 1)]
+    sizes = [(d, e, dkv) for d in range(1, MAX_HEAD_DIM + 1) for e in (4, 2)
+             for dkv in (False, True)
+             if bwd_shared_bytes(d, bwd_blocks(d)[0], e, dkv)
+             != bwd_kernel_shared_bytes(d, bwd_blocks(d)[0], e, dkv)]
+    if not bwd or bad or sizes:
+        raise SystemExit(f"backward kernels: without HMMA or with local memory "
+                         f"(spills) {bad}; block sizes that differ from the "
+                         f"kernels' own (D, bytes per element, dk/dv) {sizes}")
+
+
 def cuda_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
     for _ in range(warmup):
         fn()
@@ -214,7 +281,11 @@ def flash_bound(case, dtype: str, kernel: str = "flash_attention_fwd"):
 
     forward: reads q, k, v, writes out and lse; 2 products (S, PV).
     dq:      reads q, k, v, out, do, lse, writes dq and delta; 3 (S, dP, dQ).
-    dk/dv:   reads q, k, v, do, lse, delta, writes dk, dv; 4 (S, dP, dV, dK)."""
+    dk/dv:   reads q, k, v, do, lse, delta, writes dk, dv; 4 (S, dP, dV, dK).
+
+    The backward kernels run f32 products on the tensor cores as 3xTF32, so
+    their f32 peak is PEAK_3XTF32; the forward's is the CUDA cores'.  Also
+    returns the operations."""
     B, T, S, H, KV, D, causal, window = case
     elem = 4 if dtype == "float32" else 2
     q_rows, kv_rows, stats = B * T * H, B * S * KV, 4 * B * H * T
@@ -225,9 +296,24 @@ def flash_bound(case, dtype: str, kernel: str = "flash_attention_fwd"):
     }[kernel]
     nbytes = elem * D * rows + stats * (1 if kernel == "flash_attention_fwd" else 2)
     ops = 2 * products * D * B * H * visible_pairs(T, S, causal, window)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    peak = (PEAK_3XTF32 if kernel != "flash_attention_fwd" and dtype == "float32"
+            else PEAK_FLOPS[dtype])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", ops)
+
+
+def library_kernel_names(fn) -> list:
+    """The CUDA kernels one call of ``fn`` runs, from one ``torch.profiler``
+    pass: which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type is not None and "CUDA" in str(e.device_type)})
 
 
 def qkv(case, dtype, gen):
@@ -301,10 +387,15 @@ def check_bwd_kernel_cases(gen):
                     ("flash_attention_bwd_dkv", {"dk": (dk, rdk), "dv": (dv, rdv)})):
                 err = {n: (a.float() - b.float()).abs().max().item()
                        for n, (a, b) in pairs.items()}
+                # the largest error as a share of its element's tolerance
+                share = {n: ((a.float() - b.float()).abs()
+                             / (atol + rtol * b.float().abs())).max().item()
+                         for n, (a, b) in pairs.items()}
                 ok = all(torch.allclose(a.float(), b.float(), atol=atol, rtol=rtol)
                          for a, b in pairs.values())
                 emit("kernel", kernel=kernel, case=case, dtype=dtype,
                      **{f"max_abs_err_{n}": e for n, e in err.items()},
+                     **{f"share_of_tol_{n}": e for n, e in share.items()},
                      atol=atol, rtol=rtol, ok=ok)
                 if not ok:
                     failures.append((kernel, case, dtype))
@@ -568,14 +659,27 @@ def run_timing(gen):
             kernel_ms = cuda_ms(fn)
             library_ms = cuda_ms(library)
             plain_b = cuda_ms(plain, warmup=1, iters=3)
-            bound_ms, bound_by = flash_bound(case, dtype, kernel)
+            bound_ms, bound_by, ops = flash_bound(case, dtype, kernel)
             row = dict(case=case, ms=kernel_ms, plain_ms=(plain_a + plain_b) / 2,
                        library_ms=library_ms, library_call=library_call,
                        bound_ms=bound_ms, bound_by=bound_by)
+            if kernel != "flash_attention_fwd" and dtype == "float32":
+                # the bound on the CUDA cores, where these kernels ran until
+                # they moved to the tensor cores
+                row["bound_simt_ms"] = ops / PEAK_FLOPS[dtype] * 1e3
             rows[(kernel, case, dtype)] = row
             emit("timing", kernel=kernel, dtype=dtype, **row,
                  plain_ms_first=plain_a, plain_ms_last=plain_b,
                  share_of_bound=bound_ms / kernel_ms)
+        if case == GPT2B_TRAIN:
+            k2 = rows[("flash_attention_bwd_dq", case, dtype)]
+            k3 = rows[("flash_attention_bwd_dkv", case, dtype)]
+            emit("timing", kernel="flash_attention_bwd (K2 + K3)", dtype=dtype,
+                 case=case, k2_plus_k3_ms=k2["ms"] + k3["ms"],
+                 library_ms=k3["library_ms"], library_call=k3["library_call"],
+                 library_over_k2_plus_k3=k3["library_ms"] / (k2["ms"] + k3["ms"]),
+                 library_kernels=library_kernel_names(library_bwd))
+            del out, lse, delta, qg, kg, vg, ot, dot, library_bwd
         del timed, q, k, v, qt, kt, vt
         free_memory()
     return rows
@@ -1092,9 +1196,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all()
+    bwd_res = kernel_resources("flash_attention_bwd.cu")
     emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES),
          ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln])
+                if "registers" in ln or "spill" in ln],
+         bwd_kernels=bwd_res)
+    check_bwd_build(bwd_res)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

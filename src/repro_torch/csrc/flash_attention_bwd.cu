@@ -21,47 +21,102 @@
 //   (nothing is padded in memory, so nothing padded can leak in).
 //
 // What bounds it on an H100.  Per visible (query, key) pair the dq kernel does
-// 3 products of length D (S, dP, dQ) and the dkv kernel 4 (S, dP, dV, dK), so
-// at the gpt-2b training shape (T = 1024, D = 80, causal) they do ~T*3*D/2 and
-// ~T*4*D/2 operations per (b, h) against ~8*T*D*elem bytes: ~30 and ~40
-// operations per byte in f32, above the card's 20 (67 TFLOP/s outside the
-// tensor cores over 3.35 TB/s), so f32 is bound by operations; in bf16 the
-// tensor cores' 295 would make both bound by bytes.  Like the forward, these
-// first kernels run on the CUDA cores in f32 (no TF32, no wgmma/TMA: later
-// work), so their ceiling is the f32 FMA rate and, below it, the shared-memory
-// traffic that feeds the FMAs.
+// 3 products of length D (S, dP, dQ) and the dkv kernel 4 (S, dP, dV, dK): at
+// the gpt-2b training shape (T = 1024, D = 80, causal, f32) ~30 and ~40
+// operations per byte, so both are bound by operations.  On the CUDA cores the
+// ceiling is 67 TFLOP/s.  The tensor cores' TF32 mode keeps 10 mantissa bits,
+// too few for the f32 gradient tolerance (atol 5e-5, rtol 1e-3), but three
+// TF32 products per f32 product (3xTF32: x = big + small with big = tf32(x),
+// small = tf32(x - big); a.b ~ small.big + big.small + big.big, the small.small
+// term dropped) keep f32 accuracy at a third of the 495 TFLOP/s TF32 rate: a
+// 165 TFLOP/s ceiling.  bf16 values are exact in TF32 (8 mantissa bits of 10),
+// so with bf16 inputs S and dP take one product and dQ, dK, dV two (only P or
+// dS is split).
 //
-// What the design does about it.  Both kernels are the forward's layout with
-// the roles of the two sides swapped:
-//   * dq: one block per (b, h, block_rows query rows); a loop over K/V tiles of
-//     block_tile keys staged in shared memory (f32).  A warp owns kRows query
-//     rows; for S and dP lane j owns key j of a 32-key sub-tile and reads its
-//     K and V rows as float4 (row stride padded so the quarter-warp phases of a
-//     16-byte load hit distinct banks) against Q and dO rows read as float4
-//     broadcasts: one K or V load feeds 4*kRows FMAs.  For dQ += dS.K lanes
-//     split D (d = lane + 32*i, i < NPER) and dS_j is broadcast by a shuffle.
-//     delta is a warp reduction per row, before the loop.
-//   * dkv: one block per (b, kv head, block_rows keys); a loop over the query
-//     heads of the group and over Q/dO tiles of block_tile rows (with their lse
-//     and delta) staged in shared memory.  A warp owns kRows keys; lane j owns
-//     query j of a 32-row sub-tile for S and dP; for dV += P^T.dO and
-//     dK += dS^T.Q lanes split D and P_j, dS_j are broadcast.  The group sum
-//     happens in the f32 accumulators, so no expanded-head buffer exists.
-//   * Tiles wholly outside the causal or window band are never loaded; NPER =
-//     ceil(D / 32) is a template argument, so any D <= 256 keeps its
-//     accumulators in registers.  Shared memory above 48 KB is dynamic, raised
-//     with cudaFuncSetAttribute before the launch.
+// What the design does about it.  Every product is mma.sync.m16n8k8 (TF32
+// in, f32 accumulators); a warp owns a 16-row strip (the m16 of the mma).
+//   * dq: one block per (b, h, block_rows query rows: block_rows / 16 warps);
+//     Q and dO are staged once; a loop over K/V tiles of kTile = 32 keys.  S
+//     and dP land in mma accumulators (32 keys per warp), P and dS are
+//     computed in that layout with the masks per element (skipped on tiles
+//     the masks leave whole), and dQ += dS.K takes dS straight from the
+//     accumulators: an accumulator holds columns 2t, 2t+1 of its row, the A
+//     operand wants columns t, t+4, so the sum over k runs in the permuted
+//     order (k = t -> key 2t, k = t + 4 -> key 2t + 1) and K's fragment is
+//     read from rows 2t, 2t + 1 to match.  Nothing goes through shared
+//     memory.  S and dP sum over d in the same permuted order, so each
+//     fragment is two adjacent values, one 8-byte load.  delta is a warp
+//     reduction per row, before the loop.
+//   * dkv: one block per (b, kv head, block_rows keys); K and V staged once; a
+//     loop over the group's query heads and Q/dO tiles of kTile rows with
+//     their lse and delta.  S^T and dP^T land in accumulators, P^T and dS^T
+//     feed dV += P^T.dO and dK += dS^T.Q from registers as above.  The group
+//     sum happens in the f32 accumulators: no atomics, so every launch gives
+//     the same bits.
+//   * The streamed tiles (K/V in dq; Q/dO, lse, delta in dkv) are loaded with
+//     cp.async into two buffers: tile t + 1 is in flight while tile t is
+//     computed.  16-byte copies where every row starts 16-byte aligned, else
+//     4-byte copies (a D not a multiple of 4, or odd strides), else (bf16 rows
+//     on odd element strides) plain loads; the tail of a row past D is filled
+//     with zeros up to a multiple of 8.  Tiles stay f32 in shared memory and
+//     an operand is split when its fragment is loaded: splitting each landed
+//     tile once into a second (small) copy measured slower on an H100 (a third
+//     buffer, one more barrier per step), and a split copy of the stationary
+//     side would leave room for one block per SM only.  P and dS are split
+//     once, in registers.  The row stride in 4-byte words is 4 mod 8, so the
+//     scalar fragment pattern (rows 2t, columns g) hits 32 distinct banks and
+//     the paired one (rows g, columns 2t, 2t + 1) at most two ways.
+//   * Each tile's contribution to dQ, dK, dV is summed from zero and added to
+//     the running f32 sum outside the mma: the tensor cores truncate the
+//     addends they align, so a sum carried inside the mma across hundreds of
+//     tiles drifts with its length.
+//   * A warp's accumulators cover NA chunks of 8 columns of D (NA a template
+//     argument), up to 10 (D <= 80).  Wider heads (gemma's 256, zamba2's 112)
+//     take the wide kernels: the 4 warps of a strip share it, each computing
+//     one n8 tile of S and dP over all of D and passing its P / dS through a
+//     small shared buffer, then summing a quarter of D's columns of the
+//     output over the whole tile.  S and dP are computed once per pair at
+//     any D.  Tiles wholly outside the causal or window band are never
+//     loaded.  The longest causal rows are launched first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+// Compile-time switches for scripts/torch_flash_bwd_variants.py, which times
+// the kernels with one part taken out or one shape changed (the gradients are
+// then wrong).  The defaults are the kernels as they run.
+#ifndef FLASH_BWD_MAX_WARPS
+#define FLASH_BWD_MAX_WARPS 4
+#endif
+#ifndef FLASH_BWD_TILE
+#define FLASH_BWD_TILE 32
+#endif
+#ifndef FLASH_BWD_SCORES          // 0: no S and dP products
+#define FLASH_BWD_SCORES 1
+#endif
+#ifndef FLASH_BWD_OUT_PRODUCTS    // 0: no dQ, dK, dV products
+#define FLASH_BWD_OUT_PRODUCTS 1
+#endif
+#ifndef FLASH_BWD_COMPENSATION    // 0: every 3xTF32 product as big.big alone
+#define FLASH_BWD_COMPENSATION 1
+#endif
+
 constexpr int kWarp = 32;
-constexpr int kRows = 4;       // rows (queries for dq, keys for dkv) per warp
-constexpr int kMaxWarps = 8;   // block_rows <= 32: 256 threads, <= 255 registers
+constexpr int kStrip = 16;     // rows of a strip: the m16 of mma.m16n8k8
+constexpr int kMaxWarps = FLASH_BWD_MAX_WARPS;  // strips (a warp each) per block: 64 rows
+constexpr int kMinBlocks = 2;  // blocks per SM the tiles are sized for (bwd_blocks)
+constexpr int kTile = FLASH_BWD_TILE;           // rows of the streamed side per step
+constexpr int kNT = kTile / 8; // n8 tiles of S per strip; warps per strip when wide
+constexpr int kMaxWidth = 10;  // chunks of 8 columns a warp's accumulators cover (D <= 80)
+constexpr int kMaxWideStrips = 2;  // strips per block when wide: 256 threads
+constexpr int kPs = kTile + 8; // row stride (floats) of a wide strip's P / dS buffer
+constexpr int kOverrun = 64;   // elements read past the last staged row, at most 56
 constexpr int kMaxD = 256;
 constexpr int kStrides = 15;   // (batch, seq, head) strides of q, k, v, out, dout
 constexpr unsigned kFull = 0xffffffffu;
@@ -85,10 +140,12 @@ struct Params {
   int64_t g_sb, g_st, g_sh;   // dout
   float scale;
   int causal, window;
-  int block_rows;   // rows owned by the warps of one block (kRows per warp)
-  int block_tile;   // rows of the other side staged per loop step (x32)
-  int dp;           // D rounded up to a multiple of 4 (rows zero padded)
-  int ks;           // shared row stride in floats: dp or dp + 4, ks % 8 == 4
+  int block_rows;   // rows owned by the warps of one block (16 per warp)
+  int dp;           // D rounded up to a multiple of 8 (rows zero padded)
+  int dc;           // dp / 8: k chunks of S and dP
+  int kse;          // shared row stride in elements (4 mod 8 in 4-byte words)
+  int vec;          // copy width of the staged rows: 16, 4 or 2 bytes
+  int elem;         // bytes per element: 4 (f32) or 2 (bf16)
 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -100,34 +157,257 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The 32-bit patterns an mma TF32 operand register holds: an f32 (bf16 widened
+// exactly by 16 zero bits).  One value, or two adjacent ones in one load.
+__device__ __forceinline__ uint32_t bits(const float* p) { return __float_as_uint(*p); }
+__device__ __forceinline__ uint32_t bits(const __nv_bfloat16* p) {
+  return (uint32_t)(*reinterpret_cast<const unsigned short*>(p)) << 16;
+}
+__device__ __forceinline__ void bits2(const float* p, uint32_t& lo, uint32_t& hi) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  lo = __float_as_uint(x.x);
+  hi = __float_as_uint(x.y);
+}
+__device__ __forceinline__ void bits2(const __nv_bfloat16* p, uint32_t& lo, uint32_t& hi) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  lo = w << 16;
+  hi = w & 0xffff0000u;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
-__device__ __forceinline__ float dot4(float acc, const float4 a, const float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// ---------------------------------------------------------------------------
+// 3xTF32 on mma.sync.m16n8k8
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-__device__ __forceinline__ const float4* row4(const float* base, int r, int ks) {
-  return reinterpret_cast<const float4*>(base + r * ks);
+// x = big + small, both TF32 (round to nearest, ties away, as the tests emulate)
+__device__ __forceinline__ void split(uint32_t x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(__uint_as_float(x));
+  small = to_tf32(__uint_as_float(x) - __uint_as_float(big));
+}
+
+// c += a.b on a 16x8 tile, k = 8.  Fragments (g = lane / 4, t = lane % 4):
+// a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4);
+// b[0] (k = t, n = g), b[1] (k = t + 4, n = g);
+// c[0] (g, 2t), c[1] (g, 2t + 1), c[2] (g + 8, 2t), c[3] (g + 8, 2t + 1).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An operand fragment of N registers and, where it is split, its remainder.
+template <int N>
+struct Frag {
+  uint32_t big[N];
+  uint32_t small[N];
+};
+
+template <bool kSplit, int N>
+__device__ __forceinline__ void prepare(Frag<N>& f) {
+  if (kSplit) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) split(f.big[i], f.big[i], f.small[i]);
+  }
+}
+
+// c += a.b with a (b) split when kSA (kSB): small.big and big.small first,
+// then big.big, all into the f32 accumulators.
+template <bool kSA, bool kSB>
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
+  if (kSA && FLASH_BWD_COMPENSATION) mma(c, a.small, b.big);
+  if (kSB && FLASH_BWD_COMPENSATION) mma(c, a.big, b.small);
+  mma(c, a.big, b.big);
+}
+
+// Fragments of S = X.Y^T in the permuted d order (k = t -> column 2t, k = t + 4
+// -> column 2t + 1): A from X rows r, r + 8, B from Y row `row`, both at
+// columns c, c + 1 with c = 8 * chunk + 2t.
+template <typename T>
+__device__ __forceinline__ Frag<4> load_a(const T* s, int kse, int r, int c) {
+  Frag<4> f;
+  bits2(s + r * kse + c, f.big[0], f.big[2]);
+  bits2(s + (r + 8) * kse + c, f.big[1], f.big[3]);
+  return f;
+}
+
+template <typename T>
+__device__ __forceinline__ Frag<2> load_bt(const T* s, int kse, int row, int c) {
+  Frag<2> f;
+  bits2(s + row * kse + c, f.big[0], f.big[1]);
+  return f;
+}
+
+// B fragment of O += A.Y in the permuted k order: Y rows `row` = 8n + 2t and
+// row + 1, column col.
+template <typename T>
+__device__ __forceinline__ Frag<2> load_bn(const T* s, int kse, int row, int col) {
+  Frag<2> f;
+  f.big[0] = bits(s + row * kse + col);
+  f.big[1] = bits(s + (row + 1) * kse + col);
+  return f;
+}
+
+// The A fragment of an accumulator tile, in the permuted k order.
+__device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
+  Frag<4> f;
+  f.big[0] = __float_as_uint(c[0]);
+  f.big[1] = __float_as_uint(c[2]);
+  f.big[2] = __float_as_uint(c[1]);
+  f.big[3] = __float_as_uint(c[3]);
+  prepare<true>(f);
+  return f;
+}
+
+// acc += A.Y over one tile: A the kTile columns of P or dS in fragments (the
+// permuted k order), Y the tile's kTile shared rows (split at load when
+// kSplitY), for the NA chunks of 8 output columns from chunk c0 that this
+// warp owns.  Each chunk's tile sum starts from zero and is added to acc in f32.
+// Chunks past D read whatever follows the row in shared memory (their sums
+// are never stored; the allocation has room for the last row's overrun), so
+// no branch or clamp separates the NA products of a step.
+template <bool kSplitY, int NA, typename T>
+__device__ __forceinline__ void accumulate_tile(float (&acc)[NA][4], const Frag<4> (&a)[kNT],
+                                                const T* y, const Params& p, int c0, int g,
+                                                int t) {
+  if (!FLASH_BWD_OUT_PRODUCTS) return;
+  float part[NA][4];
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int col = (c0 + j) * 8 + g;
+      Frag<2> f = load_bn(y, p.kse, n * 8 + 2 * t, col);
+      prepare<kSplitY>(f);
+      mma3<true, kSplitY>(part[j], a[n], f);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+}
+
+// S = X1.Y1^T and dP = X2.Y2^T for NT n8 tiles from tile n0, over all chunks
+// of d, in one loop: X stationary and Y a streamed tile, both split at load
+// when kSplit.
+template <int NT, bool kSplit, typename T>
+__device__ __forceinline__ void scores(float (&s)[NT][4], float (&dp)[NT][4],
+                                       const T* x1, const T* y1, const T* x2, const T* y2,
+                                       const Params& p, int r, int n0, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+  for (int kc = 0; kc < (FLASH_BWD_SCORES ? p.dc : 0); ++kc) {
+    const int c = kc * 8 + 2 * t;
+    Frag<4> xa = load_a(x1, p.kse, r, c);
+    Frag<4> xb = load_a(x2, p.kse, r, c);
+    prepare<kSplit>(xa);
+    prepare<kSplit>(xb);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      Frag<2> ya = load_bt(y1, p.kse, (n0 + n) * 8 + g, c);
+      Frag<2> yb = load_bt(y2, p.kse, (n0 + n) * 8 + g, c);
+      prepare<kSplit>(ya);
+      prepare<kSplit>(yb);
+      mma3<kSplit, kSplit>(s[n], xa, ya);
+      mma3<kSplit, kSplit>(dp[n], xb, yb);
+    }
+  }
+}
+
+// Wide heads: each warp of a strip computes one n8 tile of P or dS and passes
+// it to the others through the strip's [kStrip][kPs] f32 buffer.
+__device__ __forceinline__ void stash(float* buf, const float (&c)[4], int n, int g, int t) {
+  *reinterpret_cast<float2*>(buf + g * kPs + n * 8 + 2 * t) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(buf + (g + 8) * kPs + n * 8 + 2 * t) = make_float2(c[2], c[3]);
+}
+
+// The A fragments of the kNT n8 tiles of P or dS: from the warp's own
+// accumulators, or when kWide from the strip's buffer (filled by stash, then
+// a barrier).
+template <bool kWide, int NT>
+__device__ __forceinline__ void a_frags(Frag<4> (&a)[kNT], const float (&c)[NT][4],
+                                        const float* buf, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    if constexpr (kWide) {
+      const float2 lo = *reinterpret_cast<const float2*>(buf + g * kPs + n * 8 + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(buf + (g + 8) * kPs + n * 8 + 2 * t);
+      const float v[4] = {lo.x, lo.y, hi.x, hi.y};
+      a[n] = acc_as_a(v);
+    } else {
+      a[n] = acc_as_a(c[n]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous staging
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Stage rows [r0, r0 + n) of a (rows, D) matrix of the model layout into
-// shared memory as f32 rows of stride ks: rows past `limit` and columns past D
-// (up to dp) are zeros.
+// shared rows of stride kse elements: columns past D (up to dp) and rows past
+// `limit` are zeros.  Copies of `vec` bytes; the zero fill is the copies' own.
 template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int64_t row_stride,
-                                           int r0, int n, int limit, int D, int dp,
-                                           int ks) {
-  for (int e = threadIdx.x; e < n * dp; e += blockDim.x) {
-    const int r = e / dp, c = e % dp;
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int64_t row_stride,
+                                           int r0, int n, int limit, const Params& p) {
+  constexpr int kElem = (int)sizeof(T);
+  if (p.vec == 2) {   // bf16 rows on odd element strides: plain loads
+    for (int e = threadIdx.x; e < n * p.dp; e += blockDim.x) {
+      const int r = e / p.dp, c = e - r * p.dp;
+      const int gr = r0 + r;
+      if (gr < limit && c < p.D) dst[r * p.kse + c] = src[(int64_t)gr * row_stride + c];
+      else store_from_f32(dst + r * p.kse + c, 0.f);
+    }
+    return;
+  }
+  const int ce = p.vec / kElem;           // elements per copy
+  const int per_row = p.dp / ce;
+  for (int e = threadIdx.x; e < n * per_row; e += blockDim.x) {
+    const int r = e / per_row;
+    const int c = (e - r * per_row) * ce;
     const int gr = r0 + r;
-    dst[r * ks + c] = (gr < limit && c < D) ? load_f32(src + gr * row_stride + c) : 0.f;
+    const int len = gr < limit ? min(max(p.D - c, 0), ce) : 0;
+    const T* s = src + (len ? (int64_t)gr * row_stride + c : 0);
+    if (p.vec == 16) cp_async16(dst + r * p.kse + c, s, len * kElem);
+    else cp_async4(dst + r * p.kse + c, s, len * kElem);
   }
 }
 
@@ -138,24 +418,38 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
   return ok;
 }
 
+// Whether every pair of queries [qa, qb] and keys [ka, kb] is visible.
+__device__ __forceinline__ bool all_visible(const Params& p, int qa, int qb, int ka, int kb) {
+  return visible(p, qb, kb) && visible(p, qa, kb) && visible(p, qb, ka);
+}
+
 // ---------------------------------------------------------------------------
 // dq: grid (ceil(Tq / block_rows), H, B)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NPER>
-__global__ void __launch_bounds__(kWarp * kMaxWarps) flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                          // [block_rows][ks]
-  float* gs = qs + p.block_rows * p.ks;      // [block_rows][ks]  dout
-  float* kt = gs + p.block_rows * p.ks;      // [block_tile][ks]
-  float* vt = kt + p.block_tile * p.ks;      // [block_tile][ks]
+template <typename T, int NA, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWarp * kNT * kMaxWideStrips : kWarp * kMaxWarps,
+                                  kWide ? 1 : kMinBlocks)
+flash_bwd_dq_kernel(const Params p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kNTw = kWide ? 1 : kNT;         // n8 tiles of S a warp computes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);       // [block_rows][kse]
+  T* gs = qs + p.block_rows * p.kse;            // [block_rows][kse]  dout
+  T* kt = gs + p.block_rows * p.kse;            // [2][kTile][kse]
+  T* vt = kt + 2 * kTile * p.kse;               // [2][kTile][kse]
+  float* dsb = reinterpret_cast<float*>(vt + 2 * kTile * p.kse);  // wide: [strips][kStrip][kPs]
 
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int strip = kWide ? warp / kNT : warp;  // the warp's 16 rows of the block
+  const int part = kWide ? warp % kNT : 0;      // wide: its n8 tile of S, its share of D
+  const int c0 = part * NA;                     // first chunk of 8 columns it owns
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int hk = h / (p.H / p.KV);
-  const int q0 = blockIdx.x * p.block_rows;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.block_rows;  // the longest causal rows first
   const int D = p.D;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -164,105 +458,109 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) flash_bwd_dq_kernel(const P
   const T* og = static_cast<const T*>(p.out) + b * p.o_sb + h * p.o_sh;
   const T* gg = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
 
-  stage_rows(qs, qg, p.q_st, q0, p.block_rows, p.Tq, D, p.dp, p.ks);
-  stage_rows(gs, gg, p.g_st, q0, p.block_rows, p.Tq, D, p.dp, p.ks);
-  __syncthreads();
-
-  // Per row of this warp: lse (a -inf row keeps P = 0) and delta.
-  const int row0 = warp * kRows;
-  float lse[kRows], delta[kRows];
-  bool live[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row0 + r;
-    float part = 0.f;
-    if (qpos < p.Tq) {
-      for (int d = lane; d < D; d += kWarp) {
-        part = fmaf(gs[(row0 + r) * p.ks + d], load_f32(og + qpos * p.o_st + d), part);
-      }
-    }
-    delta[r] = warp_sum(part);
-    const int64_t li = ((int64_t)b * p.H + h) * p.Tq + qpos;
-    lse[r] = qpos < p.Tq ? p.lse[li] : -INFINITY;
-    live[r] = lse[r] != -INFINITY;
-    if (qpos < p.Tq && lane == 0) p.delta[li] = delta[r];
-  }
-
   // Key range this query tile can see.
   const int q_last = min(q0 + p.block_rows, p.Tq) - 1;
   const int kv_hi = p.causal ? min(p.Tk, q_last + 1) : p.Tk;
   int kv_lo = p.window ? max(0, q0 - p.window + 1) : 0;
-  kv_lo = (kv_lo / p.block_tile) * p.block_tile;
+  kv_lo = (kv_lo / kTile) * kTile;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kTile - 1) / kTile : 0;
 
-  float acc[kRows][NPER];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int i = 0; i < NPER; ++i) acc[r][i] = 0.f;
+  stage_rows(qs, qg, p.q_st, q0, p.block_rows, p.Tq, p);
+  stage_rows(gs, gg, p.g_st, q0, p.block_rows, p.Tq, p);
+  if (n_tiles > 0) {
+    stage_rows(kt, kg, p.k_st, kv_lo, kTile, p.Tk, p);
+    stage_rows(vt, vg, p.v_st, kv_lo, kTile, p.Tk, p);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
 
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += p.block_tile) {
-    __syncthreads();  // previous tile fully consumed
-    stage_rows(kt, kg, p.k_st, t0, p.block_tile, p.Tk, D, p.dp, p.ks);
-    stage_rows(vt, vg, p.v_st, t0, p.block_tile, p.Tk, D, p.dp, p.ks);
-    __syncthreads();
-
-    const int n_sub = (min(p.block_tile, kv_hi - t0) + kWarp - 1) / kWarp;
-    for (int sub = 0; sub < n_sub; ++sub) {
-      // ---- S = Q K^T and dP = dO V^T against key sub*32 + lane ----
-      const int kr = sub * kWarp + lane;
-      const float4* krow = row4(kt, kr, p.ks);
-      const float4* vrow = row4(vt, kr, p.ks);
-      float s[kRows], dpv[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = dpv[r] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < p.dp / 4; ++c) {
-        const float4 kk = krow[c];
-        const float4 vv = vrow[c];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          s[r] = dot4(s[r], row4(qs, row0 + r, p.ks)[c], kk);
-          dpv[r] = dot4(dpv[r], row4(gs, row0 + r, p.ks)[c], vv);
-        }
-      }
-      // ---- P and dS ----
-      const int kpos = t0 + kr;
-      float ds[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const bool ok = live[r] && visible(p, q0 + row0 + r, kpos);
-        const float pv = ok ? expf(s[r] * p.scale - lse[r]) : 0.f;
-        ds[r] = pv * (dpv[r] - delta[r]) * p.scale;
-      }
-      // ---- dQ += dS K: lanes split D ----
-      for (int jj = 0; jj < kWarp; ++jj) {
-        const float* kj = kt + (sub * kWarp + jj) * p.ks;
-        float kk[NPER];
-#pragma unroll
-        for (int i = 0; i < NPER; ++i) {
-          const int d = lane + i * kWarp;
-          kk[i] = d < D ? kj[d] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float dsj = __shfl_sync(kFull, ds[r], jj);
-#pragma unroll
-          for (int i = 0; i < NPER; ++i) acc[r][i] = fmaf(dsj, kk[i], acc[r][i]);
-        }
+  // lse and delta of this lane's rows g and g + 8 (a -inf row keeps P = 0).
+  const int r0 = strip * kStrip;
+  float dlt[2] = {0.f, 0.f}, lse[2];
+  for (int r = 0; r < kStrip; ++r) {
+    const int qpos = q0 + r0 + r;
+    float part_sum = 0.f;
+    if (qpos < p.Tq) {
+      for (int d = lane; d < D; d += kWarp) {
+        part_sum = fmaf(load_f32(gs + (r0 + r) * p.kse + d),
+                        load_f32(og + qpos * p.o_st + d), part_sum);
       }
     }
+    const float sum = warp_sum(part_sum);
+    const int64_t li = ((int64_t)b * p.H + h) * p.Tq + qpos;
+    if (qpos < p.Tq && lane == 0 && part == 0) p.delta[li] = sum;
+    if (r == g) dlt[0] = sum;
+    if (r == g + 8) dlt[1] = sum;
+  }
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + r0 + g + 8 * i;
+    lse[i] = qpos < p.Tq ? p.lse[((int64_t)b * p.H + h) * p.Tq + qpos] : -INFINITY;
+    live[i] = lse[i] != -INFINITY;
+  }
+
+  float acc[NA][4];
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float* strip_ds = dsb + strip * kStrip * kPs;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    const int t0 = kv_lo + it * kTile;
+    if (it + 1 < n_tiles) {   // the next tile flies while this one is computed
+      stage_rows(kt + (buf ^ 1) * kTile * p.kse, kg, p.k_st, t0 + kTile, kTile, p.Tk, p);
+      stage_rows(vt + (buf ^ 1) * kTile * p.kse, vg, p.v_st, t0 + kTile, kTile, p.Tk, p);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const T* kb = kt + buf * kTile * p.kse;
+    const T* vb = vt + buf * kTile * p.kse;
+
+    // ---- S = Q K^T and dP = dO V^T: 16 rows x this warp's keys ----
+    float s[kNTw][4], dpv[kNTw][4];
+    scores<kNTw, kF32>(s, dpv, qs, kb, gs, vb, p, r0 + g, part, g, t);
+
+    // ---- P and dS, in place of S ----
+    const bool whole = all_visible(p, q0 + r0, q0 + r0 + kStrip - 1, t0, t0 + kTile - 1);
+#pragma unroll
+    for (int n = 0; n < kNTw; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2;
+        const bool ok = live[i] && (whole || visible(p, q0 + r0 + g + 8 * i,
+                                                     t0 + (part + n) * 8 + 2 * t + e % 2));
+        const float pv = ok ? expf(s[n][e] * p.scale - lse[i]) : 0.f;
+        s[n][e] = pv * (dpv[n][e] - dlt[i]) * p.scale;
+      }
+    }
+    // ---- dQ += dS K over the columns this warp owns ----
+    if constexpr (kWide) {
+      stash(strip_ds, s[0], part, g, t);
+      __syncthreads();
+    }
+    Frag<4> da[kNT];
+    a_frags<kWide>(da, s, strip_ds, g, t);
+    accumulate_tile<kF32>(acc, da, kb, p, c0, g, t);
+    __syncthreads();   // this buffer is refilled at the next step
   }
 
   T* dqg = static_cast<T*>(p.dq);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row0 + r;
+  for (int e = 0; e < 4; ++e) {
+    const int qpos = q0 + r0 + g + 8 * (e / 2);
     if (qpos >= p.Tq) continue;
     T* row = dqg + (((int64_t)b * p.Tq + qpos) * p.H + h) * D;
 #pragma unroll
-    for (int i = 0; i < NPER; ++i) {
-      const int d = lane + i * kWarp;
-      if (d < D) store_from_f32(row + d, acc[r][i]);
+    for (int j = 0; j < NA; ++j) {
+      const int d = (c0 + j) * 8 + 2 * t + e % 2;
+      if (d < D) store_from_f32(row + d, acc[j][e]);
     }
   }
 }
@@ -271,125 +569,137 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) flash_bwd_dq_kernel(const P
 // dk, dv: grid (ceil(Tk / block_rows), KV, B)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NPER>
-__global__ void __launch_bounds__(kWarp * kMaxWarps) flash_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                          // [block_rows][ks]
-  float* vt = kt + p.block_rows * p.ks;      // [block_rows][ks]
-  float* qs = vt + p.block_rows * p.ks;      // [block_tile][ks]
-  float* gs = qs + p.block_tile * p.ks;      // [block_tile][ks]  dout
-  float* ls = gs + p.block_tile * p.ks;      // [block_tile]      lse
-  float* dl = ls + p.block_tile;             // [block_tile]      delta
+template <typename T, int NA, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWarp * kNT * kMaxWideStrips : kWarp * kMaxWarps,
+                                  kWide ? 1 : kMinBlocks)
+flash_bwd_dkv_kernel(const Params p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kNTw = kWide ? 1 : kNT;         // n8 tiles of S^T a warp computes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* kt = reinterpret_cast<T*>(smem_raw);       // [block_rows][kse]
+  T* vt = kt + p.block_rows * p.kse;            // [block_rows][kse]
+  T* qs = vt + p.block_rows * p.kse;            // [2][kTile][kse]
+  T* gs = qs + 2 * kTile * p.kse;               // [2][kTile][kse]  dout
+  float* ls = reinterpret_cast<float*>(gs + 2 * kTile * p.kse);   // [2][kTile] lse
+  float* dl = ls + 2 * kTile;                                     // [2][kTile] delta
+  float* pb = dl + 2 * kTile;          // wide: [strips][2][kStrip][kPs] P^T, dS^T
 
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int strip = kWide ? warp / kNT : warp;  // the warp's 16 keys of the block
+  const int part = kWide ? warp % kNT : 0;      // wide: its n8 tile of S^T, its share of D
+  const int c0 = part * NA;                     // first chunk of 8 columns it owns
   const int b = blockIdx.z;
   const int hk = blockIdx.y;
   const int rep = p.H / p.KV;
-  const int k0 = blockIdx.x * p.block_rows;
+  const int k0 = blockIdx.x * p.block_rows;     // causal: the longest first
   const int D = p.D;
 
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  stage_rows(kt, kg, p.k_st, k0, p.block_rows, p.Tk, D, p.dp, p.ks);
-  stage_rows(vt, vg, p.v_st, k0, p.block_rows, p.Tk, D, p.dp, p.ks);
 
-  // Query range these keys are visible to.
+  // Query range these keys are visible to; one step per (query head, tile).
   const int k_last = min(k0 + p.block_rows, p.Tk) - 1;
   const int q_lo = p.causal ? k0 : 0;
   const int q_hi = p.window ? min(p.Tq, k_last + p.window) : p.Tq;
+  const int per_head = q_hi > q_lo ? (q_hi - q_lo + kTile - 1) / kTile : 0;
+  const int n_steps = rep * per_head;
 
-  const int row0 = warp * kRows;
-  float adk[kRows][NPER], adv[kRows][NPER];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int i = 0; i < NPER; ++i) adk[r][i] = adv[r][i] = 0.f;
-
-  for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
+  // Stage the Q/dO tile (with its lse and delta) of step `it` into buffer `buf`.
+  auto stage_step = [&](int it, int buf) {
+    const int h = hk * rep + it / per_head;
+    const int t0 = q_lo + (it % per_head) * kTile;
     const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* gg = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
+    stage_rows(qs + buf * kTile * p.kse, qg, p.q_st, t0, kTile, p.Tq, p);
+    stage_rows(gs + buf * kTile * p.kse, gg, p.g_st, t0, kTile, p.Tq, p);
     const int64_t lrow = ((int64_t)b * p.H + h) * p.Tq;
-    for (int t0 = q_lo; t0 < q_hi; t0 += p.block_tile) {
-      __syncthreads();  // previous tile fully consumed (and K/V staged)
-      stage_rows(qs, qg, p.q_st, t0, p.block_tile, p.Tq, D, p.dp, p.ks);
-      stage_rows(gs, gg, p.g_st, t0, p.block_tile, p.Tq, D, p.dp, p.ks);
-      for (int e = threadIdx.x; e < p.block_tile; e += blockDim.x) {
-        const int qpos = t0 + e;
-        ls[e] = qpos < p.Tq ? p.lse[lrow + qpos] : -INFINITY;
-        dl[e] = qpos < p.Tq ? p.delta[lrow + qpos] : 0.f;
-      }
-      __syncthreads();
+    for (int e = threadIdx.x; e < 2 * kTile; e += blockDim.x) {
+      const int r = e % kTile;
+      const bool in = t0 + r < p.Tq;
+      const float* src = (e < kTile ? p.lse : p.delta) + (in ? lrow + t0 + r : 0);
+      cp_async4((e < kTile ? ls : dl) + buf * kTile + r, src, in ? 4 : 0);
+    }
+  };
 
-      const int n_sub = (min(p.block_tile, q_hi - t0) + kWarp - 1) / kWarp;
-      for (int sub = 0; sub < n_sub; ++sub) {
-        // ---- S^T = K Q^T and dP^T = V dO^T against query sub*32 + lane ----
-        const int qr = sub * kWarp + lane;
-        const float4* qrow = row4(qs, qr, p.ks);
-        const float4* grow = row4(gs, qr, p.ks);
-        float s[kRows], dpv[kRows];
+  stage_rows(kt, kg, p.k_st, k0, p.block_rows, p.Tk, p);
+  stage_rows(vt, vg, p.v_st, k0, p.block_rows, p.Tk, p);
+  if (n_steps > 0) stage_step(0, 0);
+  cp_commit();
+
+  const int r0 = strip * kStrip;
+  float adk[NA][4], adv[NA][4];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) s[r] = dpv[r] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < p.dp / 4; ++c) {
-          const float4 qq = qrow[c];
-          const float4 gq = grow[c];
+  for (int j = 0; j < NA; ++j)
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            s[r] = dot4(s[r], qq, row4(kt, row0 + r, p.ks)[c]);
-            dpv[r] = dot4(dpv[r], gq, row4(vt, row0 + r, p.ks)[c]);
-          }
-        }
-        // ---- P and dS for (query qr, this warp's keys) ----
-        const int qpos = t0 + qr;
-        const float lq = ls[qr];
-        const float dq = dl[qr];
-        float pr[kRows], ds[kRows];
+    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+  float* strip_p = pb + strip * 2 * kStrip * kPs;
+  float* strip_ds = strip_p + kStrip * kPs;
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int buf = it & 1;
+    const int t0 = q_lo + (it % per_head) * kTile;
+    if (it + 1 < n_steps) {   // the next tile flies while this one is computed
+      stage_step(it + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const T* qb = qs + buf * kTile * p.kse;
+    const T* gb = gs + buf * kTile * p.kse;
+    const float* lb = ls + buf * kTile;
+    const float* db = dl + buf * kTile;
+
+    // ---- S^T = K Q^T and dP^T = V dO^T: 16 keys x this warp's queries ----
+    float s[kNTw][4], dpv[kNTw][4];
+    scores<kNTw, kF32>(s, dpv, kt, qb, vt, gb, p, r0 + g, part, g, t);
+
+    // ---- P^T and dS^T, in place of S^T and dP^T ----
+    const bool whole = all_visible(p, t0, t0 + kTile - 1, k0 + r0, k0 + r0 + kStrip - 1);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const bool ok = lq != -INFINITY && visible(p, qpos, k0 + row0 + r);
-          pr[r] = ok ? expf(s[r] * p.scale - lq) : 0.f;
-          ds[r] = pr[r] * (dpv[r] - dq) * p.scale;
-        }
-        // ---- dV += P^T dO and dK += dS^T Q: lanes split D ----
-        for (int jj = 0; jj < kWarp; ++jj) {
-          const float* qj = qs + (sub * kWarp + jj) * p.ks;
-          const float* gj = gs + (sub * kWarp + jj) * p.ks;
-          float qv[NPER], gv[NPER];
+    for (int n = 0; n < kNTw; ++n) {
 #pragma unroll
-          for (int i = 0; i < NPER; ++i) {
-            const int d = lane + i * kWarp;
-            qv[i] = d < D ? qj[d] : 0.f;
-            gv[i] = d < D ? gj[d] : 0.f;
-          }
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float pj = __shfl_sync(kFull, pr[r], jj);
-            const float dsj = __shfl_sync(kFull, ds[r], jj);
-#pragma unroll
-            for (int i = 0; i < NPER; ++i) {
-              adv[r][i] = fmaf(pj, gv[i], adv[r][i]);
-              adk[r][i] = fmaf(dsj, qv[i], adk[r][i]);
-            }
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int col = (part + n) * 8 + 2 * t + e % 2;
+        const float lq = lb[col];
+        const bool ok = lq != -INFINITY &&
+                        (whole || visible(p, t0 + col, k0 + r0 + g + 8 * (e / 2)));
+        const float pv = ok ? expf(s[n][e] * p.scale - lq) : 0.f;
+        s[n][e] = pv;
+        dpv[n][e] = pv * (dpv[n][e] - db[col]) * p.scale;
       }
     }
+    // ---- dV += P^T dO, then dK += dS^T Q, over the columns this warp owns ----
+    if constexpr (kWide) {
+      stash(strip_p, s[0], part, g, t);
+      stash(strip_ds, dpv[0], part, g, t);
+      __syncthreads();
+    }
+    Frag<4> fa[kNT];
+    a_frags<kWide>(fa, s, strip_p, g, t);
+    accumulate_tile<kF32>(adv, fa, gb, p, c0, g, t);
+    a_frags<kWide>(fa, dpv, strip_ds, g, t);
+    accumulate_tile<kF32>(adk, fa, qb, p, c0, g, t);
+    __syncthreads();   // this buffer is refilled at the next step
   }
+  if (n_steps == 0) cp_wait<0>();   // nothing in flight at exit
 
   T* dkg = static_cast<T*>(p.dk);
   T* dvg = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int kpos = k0 + row0 + r;
+  for (int e = 0; e < 4; ++e) {
+    const int kpos = k0 + r0 + g + 8 * (e / 2);
     if (kpos >= p.Tk) continue;
     const int64_t off = (((int64_t)b * p.Tk + kpos) * p.KV + hk) * D;
 #pragma unroll
-    for (int i = 0; i < NPER; ++i) {
-      const int d = lane + i * kWarp;
+    for (int j = 0; j < NA; ++j) {
+      const int d = (c0 + j) * 8 + 2 * t + e % 2;
       if (d < D) {
-        store_from_f32(dkg + off + d, adk[r][i]);
-        store_from_f32(dvg + off + d, adv[r][i]);
+        store_from_f32(dkg + off + d, adk[j][e]);
+        store_from_f32(dvg + off + d, adv[j][e]);
       }
     }
   }
@@ -401,46 +711,86 @@ __global__ void __launch_bounds__(kWarp * kMaxWarps) flash_bwd_dkv_kernel(const 
 
 enum Which { kDq = 0, kDkv = 1 };
 
-template <typename T, int NPER>
-cudaError_t launch(Which which, const Params& p, cudaStream_t stream) {
-  const size_t rows = 2 * ((size_t)p.block_rows + p.block_tile);
-  size_t smem = sizeof(float) * rows * p.ks;
-  if (which == kDkv) smem += sizeof(float) * 2 * p.block_tile;
-  auto kernel = which == kDq ? flash_bwd_dq_kernel<T, NPER> : flash_bwd_dkv_kernel<T, NPER>;
+// Whether the kNT warps of a strip share D (each one n8 tile of S and dP, a
+// kNT-th of the columns of dQ, dK, dV): heads wider than one warp's
+// accumulators hold.
+bool is_wide(int D) { return (D + 7) / 8 > kMaxWidth; }
+
+// Shared row stride in elements of D: padded to a multiple of 8 elements and
+// to 4 mod 8 four-byte words.
+int row_stride(int D, int elem) {
+  const int words = (D + 7) / 8 * 8 * elem / 4;   // a multiple of 4
+  return (words % 8 == 4 ? words : words + 4) * 4 / elem;
+}
+
+// Dynamic shared memory of a kernel: two stationary tensors of block_rows,
+// two double-buffered streamed ones of kTile rows, for dkv the lse and delta
+// buffers, for wide heads each strip's P / dS buffers (dkv: both), and room
+// for reads past the last row's D.
+// kernels/flash_attention.py:bwd_shared_bytes sizes the blocks by the same
+// formula; chip_smoke.py and the card tests hold the two equal through
+// flash_attention_bwd_shared_bytes.
+size_t shared_bytes(Which which, int D, int elem, int block_rows) {
+  size_t n = (size_t)elem * (row_stride(D, elem) * (2 * block_rows + 4 * kTile) + kOverrun);
+  if (which == kDkv) n += sizeof(float) * 4 * kTile;
+  if (is_wide(D)) n += sizeof(float) * block_rows * kPs * (which == kDkv ? 2 : 1);
+  return n;
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, Which which, bool wide, const Params& p,
+                   cudaStream_t stream) {
+  const size_t smem = shared_bytes(which, p.D, p.elem, p.block_rows);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int len = which == kDq ? p.Tq : p.Tk;
   const dim3 grid((len + p.block_rows - 1) / p.block_rows, which == kDq ? p.H : p.KV, p.B);
-  const dim3 block((p.block_rows / kRows) * kWarp);
+  const dim3 block((p.block_rows / kStrip) * (wide ? kNT : 1) * kWarp);
   kernel<<<grid, block, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, int NA, bool kWide>
+cudaError_t launch_width(Which which, const Params& p, cudaStream_t stream) {
+  if (which == kDq) return launch(flash_bwd_dq_kernel<T, NA, kWide>, which, kWide, p, stream);
+  return launch(flash_bwd_dkv_kernel<T, NA, kWide>, which, kWide, p, stream);
+}
+
+// Accumulator widths compiled, in chunks of 8 columns per warp: the smallest
+// that covers the warp's share of D.
 template <typename T>
-cudaError_t dispatch_d(Which which, const Params& p, cudaStream_t stream) {
-  switch ((p.D + kWarp - 1) / kWarp) {
-    case 1: return launch<T, 1>(which, p, stream);
-    case 2: return launch<T, 2>(which, p, stream);
-    case 3: return launch<T, 3>(which, p, stream);
-    case 4: return launch<T, 4>(which, p, stream);
-    case 5: return launch<T, 5>(which, p, stream);
-    case 6: return launch<T, 6>(which, p, stream);
-    case 7: return launch<T, 7>(which, p, stream);
-    case 8: return launch<T, 8>(which, p, stream);
-    default: return cudaErrorInvalidValue;
+cudaError_t dispatch_width(Which which, const Params& p, cudaStream_t stream) {
+  if (!is_wide(p.D)) {
+    if (p.dc <= 2) return launch_width<T, 2, false>(which, p, stream);
+    if (p.dc <= 4) return launch_width<T, 4, false>(which, p, stream);
+    if (p.dc <= 8) return launch_width<T, 8, false>(which, p, stream);
+    return launch_width<T, kMaxWidth, false>(which, p, stream);
   }
+  const int need = (p.dc + kNT - 1) / kNT;
+  if (need <= 4) return launch_width<T, 4, true>(which, p, stream);
+  if (need <= 6) return launch_width<T, 6, true>(which, p, stream);
+  if (need <= 8) return launch_width<T, 8, true>(which, p, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Whether every row of x starts on a multiple of `bytes`.
+bool aligned(const void* x, const int64_t* st, int elem, int bytes) {
+  if (reinterpret_cast<uintptr_t>(x) % bytes) return false;
+  for (int i = 0; i < 3; ++i)
+    if ((st[i] * elem) % bytes) return false;
+  return true;
 }
 
 int run(Which which, const void* q, const void* k, const void* v, const void* out,
         const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
         int dtype, int B, int Tq, int Tk, int H, int KV, int D,
         const long long* strides, float scale, int causal, int window,
-        int block_rows, int block_tile, void* stream) {
+        int block_rows, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 ||
-      D > kMaxD || block_rows < kRows || block_rows % kRows != 0 ||
-      block_rows / kRows > kMaxWarps || block_tile < kWarp ||
-      block_tile % kWarp != 0 || B > 65535 || H > 65535 || window < 0) {
+      D > kMaxD || block_rows < kStrip || block_rows % kStrip != 0 ||
+      block_rows / kStrip > (is_wide(D) ? kMaxWideStrips : kMaxWarps) || B > 65535 ||
+      H > 65535 || window < 0 || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -454,13 +804,22 @@ int run(Which which, const void* q, const void* k, const void* v, const void* ou
                           &p.g_sb, &p.g_st, &p.g_sh};
   for (int i = 0; i < kStrides; ++i) *s[i] = strides[i];
   p.scale = scale; p.causal = causal; p.window = window;
-  p.block_rows = block_rows; p.block_tile = block_tile;
-  p.dp = (D + 3) / 4 * 4;
-  p.ks = (p.dp % 8 == 4) ? p.dp : p.dp + 4;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(which, p, st);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(which, p, st);
-  return (int)cudaErrorInvalidValue;
+  p.block_rows = block_rows;
+  p.dp = (D + 7) / 8 * 8;
+  p.dc = p.dp / 8;
+  const int elem = p.elem = dtype == 0 ? 4 : 2;
+  p.kse = row_stride(D, elem);
+  // q, k, v and dout are staged (out is read in place)
+  const void* staged[4] = {q, k, v, dout};
+  const int64_t* st[4] = {&p.q_sb, &p.k_sb, &p.v_sb, &p.g_sb};
+  p.vec = 16;
+  for (int i = 0; i < 4; ++i) {
+    if (!aligned(staged[i], st[i], elem, 16)) p.vec = p.vec < 4 ? p.vec : 4;
+    if (!aligned(staged[i], st[i], elem, 4)) p.vec = 2;
+  }
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_width<float>(which, p, stm);
+  return (int)dispatch_width<__nv_bfloat16>(which, p, stm);
 }
 
 }  // namespace
@@ -470,21 +829,28 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  `strides` holds 15 element strides:
 // (batch, seq, head) of q, k, v, out and dout.  Both entry points take the
 // same arguments; the dq kernel writes delta and dq, the dkv kernel reads
-// delta and writes dk and dv, so launch dq first.  Each returns a
-// cudaError_t (0 on success); nothing is synchronised.
+// delta and writes dk and dv, so launch dq first.  block_rows is a multiple
+// of 16 up to 64.  Each returns a cudaError_t (0 on success); nothing is
+// synchronised.
 #define BWD_ARGS                                                              \
   const void *q, const void *k, const void *v, const void *out,               \
       const void *dout, const void *lse, void *delta, void *dq, void *dk,     \
       void *dv, int dtype, int B, int Tq, int Tk, int H, int KV, int D,       \
       const long long *strides, float scale, int causal, int window,          \
-      int block_rows, int block_tile, void *stream
+      int block_rows, void *stream
 #define BWD_PASS                                                              \
   q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B, Tq, Tk, H, KV, D,     \
-      strides, scale, causal, window, block_rows, block_tile, stream
+      strides, scale, causal, window, block_rows, stream
 
 int flash_attention_bwd_dq(BWD_ARGS) { return run(kDq, BWD_PASS); }
 
 int flash_attention_bwd_dkv(BWD_ARGS) { return run(kDkv, BWD_PASS); }
+
+// Dynamic shared memory in bytes of one block of the dq (dkv = 0) or the dk/dv
+// kernel (dkv = 1).
+long long flash_attention_bwd_shared_bytes(int dkv, int dtype, int D, int block_rows) {
+  return (long long)shared_bytes(dkv ? kDkv : kDq, D, dtype == 0 ? 4 : 2, block_rows);
+}
 
 const char* flash_attention_bwd_dq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

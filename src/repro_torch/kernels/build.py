@@ -43,33 +43,40 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(source: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where the library of ``source`` built with ``-D`` ``defines`` goes."""
+    text = (CSRC / source).read_bytes() + " ".join(_flags(defines)).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def _start(source: str, nvcc: str) -> Tuple[subprocess.Popen, Path, Path]:
+def _start(source: str, nvcc: str, defines: Tuple[str, ...]
+           ) -> Tuple[subprocess.Popen, Path, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = library_path(source)
+    out = library_path(source, defines)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    cmd = [nvcc, *_flags(defines), "-o", tmp, str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, Path(tmp), out
 
 
-def build_all(sources=SOURCES) -> Dict[str, str]:
-    """Compile every source whose library is missing, in parallel.
+def build_all(sources=SOURCES, defines: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """Compile every source whose library is missing, in parallel, each with
+    ``-D`` ``defines`` (none for the libraries the port loads).
 
     Returns ``{source: compiler output}`` for what was built (``-Xptxas -v``
     reports registers, shared memory and spills).  Raises on any failure."""
-    todo: List[str] = [s for s in sources if not library_path(s).is_file()]
+    todo: List[str] = [s for s in sources if not library_path(s, defines).is_file()]
     if not todo:
         return {}
     nvcc = nvcc_path()
-    jobs = [(s, *_start(s, nvcc)) for s in todo]
+    jobs = [(s, *_start(s, nvcc, defines)) for s in todo]
     logs: Dict[str, str] = {}
     failed: List[str] = []
     for source, proc, tmp, out in jobs:

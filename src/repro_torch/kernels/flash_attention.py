@@ -54,6 +54,55 @@ def fits_shared_memory(head_dim: int, block_q: int, block_k: int) -> bool:
     return 4 * (block_q * dp + block_k * ks + block_k * head_dim) <= MAX_SHARED_BYTES
 
 
+# The backward kernels (csrc/flash_attention_bwd.cu): a warp owns a 16-row
+# strip (the m16 of the tensor cores' mma) and up to 10 chunks of 8 columns
+# of D, at most 4 warps a block; wider heads take the wide kernels, where the
+# 4 warps of a strip share D, at most 2 strips a block.  The streamed side
+# comes in tiles of 32 rows, double-buffered.  The block's rows are chosen
+# here; the kernels' own size of a block (``flash_attention_bwd_shared_bytes``)
+# is held equal to bwd_shared_bytes on the card.
+BWD_ROWS_PER_WARP = 16    # kStrip in the source
+BWD_MAX_BLOCK_ROWS = 64   # kStrip * kMaxWarps
+BWD_MAX_WIDE_ROWS = 32    # kStrip * kMaxWideStrips
+BWD_MAX_WIDTH = 10        # kMaxWidth: chunks of 8 columns per warp
+BWD_TILE = 32             # kTile
+BWD_OVERRUN = 64          # kOverrun: elements read past the last staged row
+SM_SHARED_BYTES = 233472  # an H100 SM's shared memory (228 KB), 1 KB per block reserved
+
+
+def bwd_wide(head_dim: int) -> bool:
+    """Whether the backward kernels take their wide form (D > 80)."""
+    return -(-head_dim // 8) > BWD_MAX_WIDTH
+
+
+def bwd_shared_bytes(head_dim: int, block_rows: int, elem: int = 4,
+                     dkv: bool = True) -> int:
+    """Dynamic shared memory of the dk/dv kernel (``dkv``) or the dq kernel:
+    block_rows stationary rows of two tensors, two buffers of BWD_TILE rows
+    of two tensors, for dk/dv their lse and delta, for wide heads each
+    strip's f32 P / dS buffer (dk/dv: both) of BWD_TILE + 8 columns, and
+    room for reads past the last row; rows of D padded to a multiple of 8
+    elements and to a stride of 4 mod 8 words."""
+    words = -(-head_dim // 8) * 8 * elem // 4
+    ks = words if words % 8 == 4 else words + 4
+    n = (4 * ks * (2 * block_rows + 4 * BWD_TILE) + BWD_OVERRUN * elem
+         + (16 * BWD_TILE if dkv else 0))
+    if bwd_wide(head_dim):
+        n += 4 * block_rows * (BWD_TILE + 8) * (2 if dkv else 1)
+    return n
+
+
+def bwd_blocks(head_dim: int) -> Tuple[int, int]:
+    """(block_rows, block_tile) of the backward kernels: the most rows (64,
+    or 32 for wide heads) whose f32 tiles fit a block's shared memory, else
+    fewer; always 32-row tiles."""
+    top = BWD_MAX_WIDE_ROWS if bwd_wide(head_dim) else BWD_MAX_BLOCK_ROWS
+    for rows in range(top, 0, -BWD_ROWS_PER_WARP):
+        if bwd_shared_bytes(head_dim, rows) <= MAX_SHARED_BYTES:
+            return rows, BWD_TILE
+    raise ValueError(f"head dim {head_dim}: no backward block fits shared memory")
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -139,21 +188,37 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Backward
 # ---------------------------------------------------------------------------
 
+def bind_bwd(lib: ctypes.CDLL):
+    """(lib, {entry point: function}) of a built backward library."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ptr] * 10 + [i32] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+                       + [i32] * 3 + [ptr])
+        fn.restype = i32
+        fns[name] = fn
+    fn = lib.flash_attention_bwd_shared_bytes
+    fn.argtypes = [i32] * 4
+    fn.restype = ctypes.c_longlong
+    fns["shared_bytes"] = fn
+    return lib, fns
+
+
 def _bwd_kernels():
     global _bwd_fns
     if _bwd_fns is None:
-        lib = build.load(BWD_SOURCE)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fns = {}
-        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ptr] * 10 + [i32] * 7
-                           + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
-                           + [i32] * 4 + [ptr])
-            fn.restype = i32
-            fns[name] = fn
-        _bwd_fns = (lib, fns)
+        _bwd_fns = bind_bwd(build.load(BWD_SOURCE))
     return _bwd_fns
+
+
+def bwd_kernel_shared_bytes(head_dim: int, block_rows: int, elem: int = 4,
+                            dkv: bool = True) -> int:
+    """The backward kernels' own size of a block (builds them), which
+    :func:`bwd_shared_bytes` must equal."""
+    return int(_bwd_kernels()[1]["shared_bytes"](
+        int(dkv), 0 if elem == 4 else 1, head_dim, block_rows))
 
 
 def _check_bwd(q, k, v, out, lse, do):
@@ -173,18 +238,20 @@ def _check_bwd(q, k, v, out, lse, do):
 
 
 def _launch_bwd(name, q, k, v, out, lse, do, delta, dq, dk, dv, causal,
-                window) -> None:
-    """Both kernels run with the forward's default blocks: 32 rows owned by
-    a block's 8 warps (queries for dq, keys for dk/dv), 64 rows of the other
-    side staged per step (32 for D > 128)."""
+                window, kernels=None, block_rows=None) -> None:
+    """Both kernels run with :func:`bwd_blocks`: block_rows rows owned by a
+    block's warps (queries for dq, keys for dk/dv), 32 rows of the other
+    side streamed per step.  ``kernels`` (from :func:`bind_bwd`) and
+    ``block_rows`` stand in for the built library and the block's rows in
+    scripts that time builds of the source with other switches."""
     if any(x.stride(-1) != 1 for x in (q, k, v, out, do)):
         raise ValueError("the head dim of q, k, v, out and do must be contiguous")
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
-    block_rows, block_tile = default_blocks(D)
+    block_rows = block_rows or bwd_blocks(D)[0]
     strides = (ctypes.c_longlong * 15)(*(
         s for x in (q, k, v, out, do) for s in x.stride()[:3]))
-    lib, fns = _bwd_kernels()
+    lib, fns = kernels or _bwd_kernels()
     with torch.cuda.device(q.device):
         err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -192,7 +259,7 @@ def _launch_bwd(name, q, k, v, out, lse, do, delta, dq, dk, dv, causal,
                         *(0 if x is None else x.data_ptr() for x in (dq, dk, dv)),
                         _DTYPE_CODE[q.dtype], B, T, S, H, KV, D, strides,
                         D ** -0.5, int(causal), int(window), block_rows,
-                        block_tile, torch.cuda.current_stream().cuda_stream)
+                        torch.cuda.current_stream().cuda_stream)
     build.check(err, lib, name)
     LAUNCHES[name] += 1
 

@@ -13,6 +13,7 @@ from repro_torch.kbench import harness
 from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.flash_attention import (
+    MAX_HEAD_DIM, bwd_blocks, bwd_kernel_shared_bytes, bwd_shared_bytes,
     flash_attention_bwd, flash_attention_fwd,
 )
 from repro_torch.kernels.ref import (
@@ -127,6 +128,83 @@ def test_flash_bwd_kernels_match_plain_version(hopper, case, dtype):
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                    window=window)
     _grads_close(got, want, dtype)
+
+
+# Heads the backward kernels stage by narrower copies: D = 33 (rows not 16-byte
+# aligned: 4-byte copies; with one bf16 head, odd element strides: plain
+# loads) and D = 100 (16-byte rows, padded to 104 columns).  Heads past 80
+# columns take the wide kernels (the warps of a strip share D): D = 100, the
+# first wide head (D = 81, 4-byte copies), a 6-chunk share (D = 136), a
+# window on D = 200, GQA on D = 96
+BWD_HEAD_CASES = [
+    (2, 77, 77, 4, 2, 33, True, 0),
+    (1, 70, 90, 1, 1, 33, True, 0),
+    (2, 150, 150, 4, 4, 100, True, 0),
+    (1, 96, 160, 2, 1, 100, False, 0),
+    (1, 70, 70, 2, 1, 81, True, 0),
+    (2, 100, 100, 4, 2, 136, False, 0),
+    (1, 96, 96, 3, 3, 200, True, 32),
+    (2, 130, 130, 8, 2, 96, True, 0),
+]
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("case", BWD_HEAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_match_plain_version_on_other_heads(hopper, case, dtype):
+    test_flash_bwd_kernels_match_plain_version(hopper, case, dtype)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("D", [80, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_are_bit_equal_from_launch_to_launch(hopper, dtype, D):
+    """No atomics: the GQA group sum and every product run in a fixed order
+    (D = 256: the wide kernels)."""
+    B, T, S, H, KV = 2, 256, 256, 8, 2
+    q, k, v = (torch.from_numpy(x).to(hopper, getattr(torch, dtype))
+               for x in _qkv(10, B, T, S, H, KV, D))
+    do = torch.from_numpy(_qkv(11, B, T, S, H, KV, D)[0]).to(hopper, q.dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    second = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+# The kernels' own margin under the f32 gradient tolerance, at gpt-2b's
+# training shape and at four times its length.  The tensor cores truncate the
+# addends they align while they accumulate, which the numpy emulation in
+# tests/test_torch_flash_bwd_tf32.py does not model, so the margin is pinned
+# here: every element's error stays under half of atol + rtol * |plain|.
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("case", [(8, 1024, 1024, 32, 32, 80, True, 0),
+                                  (1, 4096, 4096, 8, 8, 80, True, 0)])
+def test_flash_bwd_kernels_keep_half_the_f32_gradient_tolerance(hopper, case):
+    B, T, S, H, KV, D, causal, window = case
+    q, k, v = (torch.from_numpy(x).to(hopper) for x in _qkv(6, B, T, S, H, KV, D))
+    do = torch.from_numpy(_qkv(7, B, T, S, H, KV, D)[0]).to(hopper)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                   window=window)
+    atol, rtol = GRAD_TOL["float32"]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        share = ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+        assert share <= 0.5, (name, share)
+
+
+@pytest.mark.cuda_sm90
+def test_flash_bwd_block_sizing_equals_the_kernels_own(hopper):
+    """bwd_shared_bytes, which picks the blocks' rows, against the size the
+    kernels launch with, for every head dim, dtype and kernel."""
+    for d in range(1, MAX_HEAD_DIM + 1):
+        rows = bwd_blocks(d)[0]
+        for elem in (4, 2):
+            for dkv in (False, True):
+                assert (bwd_shared_bytes(d, rows, elem, dkv)
+                        == bwd_kernel_shared_bytes(d, rows, elem, dkv)), (d, elem, dkv)
 
 
 @pytest.mark.cuda_sm90
