@@ -8,19 +8,21 @@ each (``{"phase": ...}``):
   device    card name, count and ``nvidia-smi`` name / power limit;
   build     compiles every CUDA source of the port with nvcc (seconds,
             ptxas registers and spills of what this run compiled) and reads
-            each backward kernel's tensor-core instructions (HMMA,
-            ``cuobjdump -sass``) and registers, stack and local memory
-            (``cuobjdump -res-usage``) from the built library, so a cached
-            build is checked too; fails on local memory or stack (spills) in
-            a backward kernel, on one without HMMA, or where the wrapper's
-            size of a backward block differs from the kernels' own;
+            each flash kernel's (forward and backward) tensor-core
+            instructions (HMMA, ``cuobjdump -sass``) and registers, stack and
+            local memory (``cuobjdump -res-usage``) from the built library,
+            so a cached build is checked too; fails on local memory or stack
+            (spills) in a flash kernel, on one without HMMA, or where the
+            wrapper's size of a forward or backward block differs from the
+            kernels' own;
   kernel    each kernel against its plain PyTorch version on the card, on
             the reference's flash cases plus the shapes of the serving and
             the training path: the forward in float32 (tolerance 2e-5) and
             bfloat16 (2e-2), out and lse; the backward's dq kernel (dq) and
             dk/dv kernel (dk, dv) in float32 (atol 5e-5, rtol 1e-3) and
-            bfloat16 (atol 4e-3, rtol 8e-3), with each one's largest error as
-            a share of its element's tolerance;
+            bfloat16 (atol 4e-3, rtol 8e-3); each with its largest error as
+            a share of its element's tolerance (the worst f32 one of the
+            forward is on the ``kernels`` line);
   main      ``repro_torch.api.generate("gpt-2b", batch=8, prompt_len=512,
             gen_tokens=32)`` at full width with launch counts reset just
             before and read just after (32 flash launches: one per layer);
@@ -64,10 +66,15 @@ each (``{"phase": ...}``):
             (atol 1e-6, rtol 1e-6: sums of 2560 squares in other orders);
   kbench    after the model phases (each of which launches K4 0 times):
             ``kbench.collect(shapes="default")`` on the card for the three
-            ops, ``collect_autotuned`` + ``install`` (the entry points then
+            ops (each trial a run of calls back to back, at least 1 ms),
+            ``collect_autotuned`` + ``install`` (the entry points then
             resolve to the winners), ``bench_op`` at the main paths'
-            full-width shapes, the table saved and reloaded, and the tuned
-            blocks cleared;
+            full-width shapes, K4 at (4096, 2560) also timed one call per
+            event pair (the host share of a call), ``ops.flash_attention``
+            at gpt-2b's prefill and gemma-2b's D = 256 with the winners still
+            installed (a winner for another head dim that does not fit gives
+            way to the default tile), the table saved and reloaded, and the
+            tuned blocks cleared;
   plan      on the host, from that table: the HAPT planner on an H100 mesh
             plus the paper's A100 and V100 meshes, full gpt-2b and
             mamba2-2.7b (seq_len 1024, global_batch 64, default
@@ -80,7 +87,7 @@ each (``{"phase": ...}``):
             PyTorch call that computes the same
             (``F.scaled_dot_product_attention`` and its backward,
             ``F.rms_norm``, timed only as yardsticks, never called by the
-            port; none exists for K5) and the card's bound (the backward
+            port; none exists for K5) and the card's bound (the flash
             kernels' f32 operations at the 3xTF32 rate they run at, 165
             TFLOP/s; ``bound_simt_ms`` keeps the CUDA-core rate, 67
             TFLOP/s), and K2 + K3 together against the library's backward,
@@ -100,6 +107,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -113,8 +121,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # f32 products on the tensor cores as three TF32 products each (3xTF32, the
-# backward kernels' scheme): a third of the 495 TFLOP/s dense TF32 rate.  The
-# backward kernels' f32 bound is taken at this rate
+# flash kernels' scheme): a third of the 495 TFLOP/s dense TF32 rate.  The
+# flash kernels' f32 bound is taken at this rate
 PEAK_3XTF32 = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -202,14 +210,14 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def kernel_resources(source: str) -> dict:
-    """Per kernel of a built library: its tensor-core instructions (``hmma``,
-    from ``cuobjdump -sass``: whether its products run there) and its
-    registers, stack and local memory (``cuobjdump -res-usage``; ptxas spills
-    to local memory)."""
+def kernel_resources(source: str, defines=()) -> dict:
+    """Per kernel of a built library (``source`` built with ``-D``
+    ``defines``): its tensor-core instructions (``hmma``, from ``cuobjdump
+    -sass``: whether its products run there) and its registers, stack and
+    local memory (``cuobjdump -res-usage``; ptxas spills to local memory)."""
     from repro_torch.kernels import build
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    lib = str(build.library_path(source))
+    lib = str(build.library_path(source, tuple(defines)))
 
     def dump(flag):
         return subprocess.run([cuobjdump, flag, lib], capture_output=True,
@@ -232,23 +240,30 @@ def kernel_resources(source: str) -> dict:
     return res
 
 
-def check_bwd_build(res: dict) -> None:
-    """Every backward kernel runs HMMA and uses no local memory or stack, and
-    the wrapper's size of each backward block is the kernels' own."""
+def check_flash_build(res: dict) -> None:
+    """Every flash kernel (forward and backward) runs HMMA and uses no local
+    memory or stack, and the wrapper's size of each forward and backward
+    block, which decides the tiles that launch, is the kernels' own for every
+    head dim and dtype (the forward at every kbench tile)."""
     from repro_torch.kernels.flash_attention import (
         MAX_HEAD_DIM, bwd_blocks, bwd_kernel_shared_bytes, bwd_shared_bytes,
+        fwd_kernel_shared_bytes, fwd_shared_bytes,
     )
-    bwd = {n: r for n, r in res.items() if "flash_bwd" in n}
-    bad = [(n, r) for n, r in bwd.items()
+    flash = {n: r for n, r in res.items() if "flash_fwd" in n or "flash_bwd" in n}
+    bad = [(n, r) for n, r in flash.items()
            if not r["hmma"] or r.get("local", 1) or r.get("stack", 1)]
-    sizes = [(d, e, dkv) for d in range(1, MAX_HEAD_DIM + 1) for e in (4, 2)
-             for dkv in (False, True)
-             if bwd_shared_bytes(d, bwd_blocks(d)[0], e, dkv)
-             != bwd_kernel_shared_bytes(d, bwd_blocks(d)[0], e, dkv)]
-    if not bwd or bad or sizes:
-        raise SystemExit(f"backward kernels: without HMMA or with local memory "
-                         f"(spills) {bad}; block sizes that differ from the "
-                         f"kernels' own (D, bytes per element, dk/dv) {sizes}")
+    dims = [(d, e) for d in range(1, MAX_HEAD_DIM + 1) for e in (4, 2)]
+    sizes = [("fwd", d, e, bq, bk) for d, e in dims
+             for bq in (16, 32, 64) for bk in (32, 64, 128)
+             if fwd_shared_bytes(d, bq, bk, e) != fwd_kernel_shared_bytes(d, bq, bk, e)]
+    sizes += [("bwd", d, e, dkv) for d, e in dims for dkv in (False, True)
+              if bwd_shared_bytes(d, bwd_blocks(d)[0], e, dkv)
+              != bwd_kernel_shared_bytes(d, bwd_blocks(d)[0], e, dkv)]
+    missing = [k for k in ("flash_fwd", "flash_bwd") if not any(k in n for n in flash)]
+    if missing or bad or sizes:
+        raise SystemExit(f"flash kernels: missing {missing}; without HMMA or "
+                         f"with local memory (spills) {bad}; block sizes that "
+                         f"differ from the kernels' own {sizes[:10]}")
 
 
 def cuda_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
@@ -283,9 +298,8 @@ def flash_bound(case, dtype: str, kernel: str = "flash_attention_fwd"):
     dq:      reads q, k, v, out, do, lse, writes dq and delta; 3 (S, dP, dQ).
     dk/dv:   reads q, k, v, do, lse, delta, writes dk, dv; 4 (S, dP, dV, dK).
 
-    The backward kernels run f32 products on the tensor cores as 3xTF32, so
-    their f32 peak is PEAK_3XTF32; the forward's is the CUDA cores'.  Also
-    returns the operations."""
+    All three run f32 products on the tensor cores as 3xTF32, so their f32
+    peak is PEAK_3XTF32.  Also returns the operations."""
     B, T, S, H, KV, D, causal, window = case
     elem = 4 if dtype == "float32" else 2
     q_rows, kv_rows, stats = B * T * H, B * S * KV, 4 * B * H * T
@@ -296,8 +310,7 @@ def flash_bound(case, dtype: str, kernel: str = "flash_attention_fwd"):
     }[kernel]
     nbytes = elem * D * rows + stats * (1 if kernel == "flash_attention_fwd" else 2)
     ops = 2 * products * D * B * H * visible_pairs(T, S, causal, window)
-    peak = (PEAK_3XTF32 if kernel != "flash_attention_fwd" and dtype == "float32"
-            else PEAK_FLOPS[dtype])
+    peak = PEAK_3XTF32 if dtype == "float32" else PEAK_FLOPS[dtype]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", ops)
@@ -329,7 +342,7 @@ def check_kernel_cases(gen):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import flash_attention_ref
 
-    failures, main_err = [], None
+    failures, main_err, worst = [], None, (0.0, None)
     for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN]:
         causal, window = case[6], case[7]
         for dtype in ("float32", "bfloat16"):
@@ -345,16 +358,24 @@ def check_kernel_cases(gen):
             ok = (same_inf
                   and torch.allclose(out.float(), ro.float(), atol=tol, rtol=tol)
                   and torch.allclose(lse[fin], rl[fin], atol=tol, rtol=tol))
+            # the largest error as a share of its element's tolerance
+            share = max(((out.float() - ro.float()).abs()
+                         / (tol + tol * ro.float().abs())).max().item(),
+                        ((lse[fin] - rl[fin]).abs()
+                         / (tol + tol * rl[fin].abs())).max().item() if fin.any() else 0.0)
             emit("kernel", kernel="flash_attention_fwd", case=case, dtype=dtype,
                  max_abs_err_out=err_out, max_abs_err_lse=err_lse,
-                 neg_inf_rows_match=same_inf, tol=tol, ok=ok)
+                 share_of_tol=share, neg_inf_rows_match=same_inf, tol=tol, ok=ok)
             if not ok:
                 failures.append((case, dtype))
             if case == GPT2B_PREFILL and dtype == "float32":
                 main_err = max(err_out, err_lse)
+            if dtype == "float32" and share > worst[0]:
+                worst = (share, case)
+            del q, k, v, out, lse, ro, rl
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
-    return main_err
+    return main_err, worst
 
 
 def check_bwd_kernel_cases(gen):
@@ -663,7 +684,7 @@ def run_timing(gen):
             row = dict(case=case, ms=kernel_ms, plain_ms=(plain_a + plain_b) / 2,
                        library_ms=library_ms, library_call=library_call,
                        bound_ms=bound_ms, bound_by=bound_by)
-            if kernel != "flash_attention_fwd" and dtype == "float32":
+            if dtype == "float32":
                 # the bound on the CUDA cores, where these kernels ran until
                 # they moved to the tensor cores
                 row["bound_simt_ms"] = ops / PEAK_FLOPS[dtype] * 1e3
@@ -1014,6 +1035,7 @@ def run_kbench():
     from repro_torch.kbench import autotune, harness
     from repro_torch.kbench.table import LatencyTable
     from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels.ref import flash_attention_ref
 
     trials, warmup = 20, 3
     fp = harness.device_fingerprint()
@@ -1021,7 +1043,8 @@ def run_kbench():
                  "ssd_intra": "ssd_intra"}
     reset_launches()
     t0 = time.perf_counter()
-    # 1. the canonical collect: each op's launches grow by warmup + trials
+    # 1. the canonical collect: each op's launches grow by warmup, the calls
+    # that size a trial, and trials x those calls
     table = LatencyTable()
     grew = {}
     for op in sorted(harness.OPS):
@@ -1046,13 +1069,43 @@ def run_kbench():
     # resolve to with the winners installed
     full = []
     for op, shape in sorted(KBENCH_FULL.items()):
-        blocks = (ops.tuned_blocks(op, shape)
-                  or harness.OPS[op].default_blocks(shape))
+        blocks = (ops.flash_blocks(shape) if op == "flash_attention"
+                  else ops.tuned_blocks(op, shape) or harness.OPS[op].default_blocks(shape))
         full.append(harness.measurement(harness.bench_op(
             op, shape, blocks=blocks, trials=trials, warmup=warmup)))
         table.add(full[-1])
     table = table.merge(tuned)
-    # 4. save, reload, compare
+    # K4 at the hidden states both ways: trials of one call between their own
+    # event pair (the host time of a call inside every sample, as kbench
+    # timed before) and kbench's back-to-back trials (the full-width cell)
+    x, w = rms_inputs(RMS_MAIN, "float32", torch.Generator(device="cuda").manual_seed(4))
+    k4_blocks = ops.tuned_blocks("rmsnorm", RMS_MAIN) or (None,)
+    k4_per_call = statistics.median(harness.trial_seconds(
+        lambda: ops.rmsnorm(x, w, block_rows=k4_blocks[0]), trials, 1)) * 1e3
+    k4_b2b = next(e.median_s for e in full if e.op == "rmsnorm") * 1e3
+    del x, w
+    # 4. the entry point at the attention shapes of gpt-2b's prefill and
+    # gemma-2b (D = 256) with the winners still installed: the nearest winner
+    # may be for another head dim, and a tile the kernel does not take there
+    # gives way to the default; one launch each, held to the plain version
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    resolved_calls = []
+    for case in (GPT2B_PREFILL, EXTRA_CASES[1]):
+        shape = case[:6]
+        q, k, v = qkv(case, "float32", gen)
+        before = LAUNCHES["flash_attention_fwd"]
+        out = ops.flash_attention(q, k, v, causal=case[6], window=case[7])
+        torch.cuda.synchronize()
+        n = LAUNCHES["flash_attention_fwd"] - before
+        ro = flash_attention_ref(q, k, v, causal=case[6], window=case[7])[0]
+        err = (out - ro).abs().max().item()
+        resolved_calls.append({
+            "shape": list(shape), "nearest_winner": ops.tuned_blocks("flash_attention", shape),
+            "launched_blocks": ops.flash_blocks(shape), "launches": n,
+            "max_abs_err": err,
+            "ok": n == 1 and torch.allclose(out, ro, atol=TOL["float32"], rtol=TOL["float32"])})
+        del q, k, v, out, ro
+    # 5. save, reload, compare
     build_dir = os.path.join(ROOT, "build")
     os.makedirs(build_dir, exist_ok=True)
     fd, path = tempfile.mkstemp(prefix="kbench_", suffix=".json", dir=build_dir)
@@ -1079,6 +1132,10 @@ def run_kbench():
                   "sweep": [[b, t] for b, t in sw.sweep]} for sw in sweeps],
          installed=n_installed, resolved=resolved,
          full_width=[cell(e) for e in full],
+         rmsnorm_main_ms={"shape": list(RMS_MAIN), "blocks": k4_blocks,
+                          "per_call": k4_per_call, "back_to_back": k4_b2b,
+                          "host_share_per_call": 1 - k4_b2b / k4_per_call},
+         flash_with_winners_installed=resolved_calls,
          table_cells=len(table), table_round_trip=round_trip,
          table_fingerprint=table.fingerprint(), launches=launches,
          seconds=seconds, table=table.to_dict())
@@ -1088,8 +1145,12 @@ def run_kbench():
         raise SystemExit(f"kbench cells not measured on the card: {bad}")
     if sorted(e.op for e in collected) != sorted(harness.OPS):
         raise SystemExit(f"kbench collected {[e.op for e in collected]}")
-    if any(n != trials + warmup for n in grew.values()):
-        raise SystemExit(f"launches grew by {grew}, expected {trials + warmup} each")
+    if any(n < trials + warmup for n in grew.values()):
+        raise SystemExit(f"launches grew by {grew}, expected at least "
+                         f"{trials + warmup} each")
+    if not all(c["ok"] for c in resolved_calls):
+        raise SystemExit(f"ops.flash_attention with the winners installed: "
+                         f"{resolved_calls}")
     want = {sw.op: sw.best_blocks for sw in sweeps if sw.best_blocks}
     if {op: resolved[op] for op in want} != want or n_installed != len(want):
         raise SystemExit(f"installed winners {want} resolve to {resolved}")
@@ -1196,16 +1257,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all()
+    fwd_res = kernel_resources("flash_attention_fwd.cu")
     bwd_res = kernel_resources("flash_attention_bwd.cu")
     emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES),
          ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln],
-         bwd_kernels=bwd_res)
-    check_bwd_build(bwd_res)
+         fwd_kernels=fwd_res, bwd_kernels=bwd_res)
+    check_flash_build({**fwd_res, **bwd_res})
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    fwd_err = check_kernel_cases(gen)
+    fwd_err, (fwd_share, fwd_share_case) = check_kernel_cases(gen)
     bwd_err = check_bwd_kernel_cases(gen)
     ssd_err = check_ssd_cases(gen)
     rms_err = check_rmsnorm_cases(gen)
@@ -1239,7 +1301,13 @@ def main() -> int:
         entry("flash_attention_fwd", "src/repro_torch/csrc/flash_attention_fwd.cu",
               "src/repro/kernels/ops.py:120", serve_launches["flash_attention_fwd"],
               fwd_err, GPT2B_PREFILL, tol=TOL["float32"],
-              launches_train=train_launches["flash_attention_fwd"]),
+              launches_train=train_launches["flash_attention_fwd"],
+              train_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["ms"],
+              train_bound_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["bound_ms"],
+              train_library_ms=rows[("flash_attention_fwd", GPT2B_TRAIN,
+                                     "float32")]["library_ms"],
+              worst_f32_share_of_tol=fwd_share,
+              worst_f32_share_case=list(fwd_share_case)),
         entry("flash_attention_bwd_dq", bwd_src,
               "src/repro/kernels/flash_attention.py:236",
               train_launches["flash_attention_bwd_dq"],

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """RMSNorm kernel (K4): warps per block against ``block_rows``, on the card.
 
-Builds ``src/repro_torch/csrc/rmsnorm.cu`` three times with ``kWarps`` set to
-8, 16 and 32 (into ``build/rmsnorm_warps/``), then times each build through
+Builds ``src/repro_torch/csrc/rmsnorm.cu`` four times with ``kWarps`` (the
+rows, one per warp, of each of the small blocks a row tile is spread over)
+set to 2, 4, 8 and 16 (into ``build/rmsnorm_warps/``), then times each build through
 the port's wrapper at the full-width hidden states (4096, 2560) and
 (8192, 2560) and at kbench's ``default_shape`` (4096, 2048), f32, for
 ``block_rows`` 32, 64, 128 and 256, in both orders of the builds, beside
@@ -26,7 +27,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels import build, rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.ref import rmsnorm_ref  # noqa: E402
 
-WARPS = (8, 16, 32)
+WARPS = (2, 4, 8, 16)
 BLOCK_ROWS = (32, 64, 128, 256)
 SHAPES = ((4096, 2560), (8192, 2560), (4096, 2048))
 

@@ -4,7 +4,7 @@
 // repro/kernels/flash_attention.py:_fwd_kernel (and flash_attention_fwd,
 // which launches the same body).  Contract, identical to that kernel's:
 //   q (B, Tq, H, D), k/v (B, Tk, KV, D), read in the model layout through
-//   strides (the last dim contiguous), f32 or bf16;
+//   strides (the last dim contiguous), f32 or bf16, every product in f32;
 //   out (B, Tq, H, D) in the input dtype, lse (B, H, Tq) f32;
 //   scores scaled by the host-given scale (D**-0.5 of the real D);
 //   masks: causal k <= q, window k > q - window, real lengths Tq / Tk
@@ -12,46 +12,84 @@
 //   GQA: query head h reads kv head h / (H / KV), no repeat in memory;
 //   a row with every key masked gets out = 0 and lse = -inf.
 //
-// What bounds it on an H100.  At the shapes the serving path gives it
-// (gpt-2b prefill: T = 512, D = 80, causal) the work is 4*D operations per
-// visible (query, key) pair against 4*D*elem bytes per row of q/k/v/out,
-// i.e. ~T/(2*elem) operations per byte: 64 in float32, above the card's
-// 20 (67 TFLOP/s outside the tensor cores over 3.35 TB/s), so float32 is
-// bound by operations; 128 in bf16, below the tensor cores' 295, so bf16
-// would be bound by bytes.  This first kernel runs on the CUDA cores in
-// float32 (no tensor cores, no TF32, no wgmma/TMA: a later change), so its
-// ceiling is the f32 FMA rate and, below that, the shared-memory traffic
-// that feeds the FMAs.
+// What bounds it on an H100.  Per visible (query, key) pair the kernel does
+// two products of length D (S = Q.K^T and O += P.V): at the gpt-2b shapes
+// (T = 512 or 1024, D = 80, causal, f32) ~T/8 operations per byte, so it is
+// bound by operations.  On the CUDA cores that ceiling is 67 TFLOP/s.  The
+// tensor cores' TF32 mode keeps 10 mantissa bits, too few for the f32
+// tolerance (2e-5), but three TF32 products per f32 product (3xTF32: x =
+// big + small with big = tf32(x), small = tf32(x - big); a.b ~ small.big +
+// big.small + big.big) keep f32 accuracy at a third of the 495 TFLOP/s TF32
+// rate: a 165 TFLOP/s ceiling.  bf16 values are exact in TF32, so with bf16
+// inputs S takes one product and P.V two (only P is split).
 //
-// What the design does about it.
-//   * One block per (b, h, tile of block_q query rows); a loop over K/V
-//     tiles of block_k keys staged once in shared memory (as f32) and read
-//     by every query row of the block, so each K/V byte leaves device
-//     memory / L2 once per query tile.  Tiles wholly outside the causal or
-//     window band are never loaded.
-//   * A warp owns kRows query rows.  For Q.K^T, lane j owns key j of a
-//     32-key sub-tile and computes its dot products with all kRows rows,
-//     reading K as float4 (row stride padded so the quarter-warp phases of
-//     a 16-byte load hit distinct banks) and Q as float4 broadcasts: one K
-//     load feeds 4*kRows FMAs.  Online-softmax max/sum per row are warp
-//     reductions held in registers.  For P.V, lanes split D (d = lane +
-//     32*i, i < NPER), so any D <= 256 works, and p_j is broadcast with a
-//     shuffle.  Accumulation is f32 throughout.
-//   * Shared memory above 48 KB (e.g. D = 256) is dynamic shared memory,
-//     raised with cudaFuncSetAttribute before the launch.
+// What the design does about it (the pattern of flash_attention_bwd.cu's dq
+// kernel; the two share flash_mma.cuh's helpers).  Every product is
+// mma.sync.m16n8k8 (TF32 in, f32 accumulators); a warp owns a 16-row query
+// strip (the m16 of the mma), a block up to 4 strips (block_q <= 64).
+//   * One block per (head, batch, block_q query rows), the longest causal
+//     rows launched first.  Q is staged once; K and V arrive in tiles of
+//     block_k keys by cp.async into two buffers (tile t + 1 in flight while
+//     tile t is computed).  16-byte copies where every row starts 16-byte
+//     aligned, else 4-byte copies, else (bf16 rows on odd element strides)
+//     plain loads; the tail of a row past D is zeros up to a multiple of 8.
+//     The shared row stride is 4 mod 8 words.  Tiles wholly outside the
+//     causal or window band are never loaded; a strip skips the 32-key steps
+//     it cannot see.
+//   * D <= 80: per step of 32 keys a warp computes S (16 x 32) into mma
+//     accumulators, summing over d in a permuted order so that each Q or K
+//     fragment is one 8-byte load.  Q's fragment is split when it is loaded
+//     (holding Q's split fragments in registers for the whole loop measured
+//     slower on an H100 and spilled at D = 80), in a loop over d unrolled
+//     by 4 (by 1, 2, or fully, measured slower:
+//     scripts/torch_flash_fwd_variants.py).  The masks apply per element,
+//     only on steps that straddle an edge.  The online softmax stays in the
+//     accumulator layout: a row's max is a reduction among the 4 lanes that
+//     own it (2 shuffles); each lane keeps a partial row sum, reduced once at
+//     the end.  P goes straight from the accumulators into O += P.V as A
+//     fragments in the permuted k order (key 2t is k = t, key 2t + 1 is
+//     k = t + 4), V's B fragment read from rows 2t, 2t + 1 to match.
+//   * Each step's P.V is summed from zero in the mma and added to the
+//     running f32 O after its alpha rescale (O = alpha O + part): the tensor
+//     cores truncate the addends they align, so a sum carried inside the mma
+//     across many steps drifts with its length.
+//   * Wider heads (zamba2's 112, 128, gemma's 256): the 4 warps of a strip
+//     share D.  Each computes one n8 tile of S over all of D (Q split at
+//     load from shared memory), the strip's row max is exchanged through
+//     shared memory, and P passes through a 16 x 40 f32 buffer, after which
+//     each warp sums a quarter of D's columns of O over the 32 keys; 2 strips
+//     (256 threads, block_q <= 32) per block, so that a thread may hold 255
+//     registers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRows = 4;        // query rows per warp
-constexpr int kMaxWarps = 16;   // block_q <= 64: 512 threads x <= 128 registers
-constexpr int kMaxD = 256;
-constexpr unsigned kFull = 0xffffffffu;
+// Compile-time switches for scripts/torch_flash_fwd_variants.py, which times
+// the kernel with one part taken out or changed (the output is then wrong
+// where a part is taken out).  The defaults are the kernel as it runs.
+#ifndef FLASH_FWD_SCORES          // 0: no S products
+#define FLASH_FWD_SCORES 1
+#endif
+#ifndef FLASH_FWD_PV              // 0: no P.V products
+#define FLASH_FWD_PV 1
+#endif
+#ifndef FLASH_FWD_COMPENSATION    // 0: every 3xTF32 product as big.big alone
+#define FLASH_FWD_COMPENSATION 1
+#endif
+#ifndef FLASH_FWD_D_UNROLL        // chunks of d per iteration of S's loop
+#define FLASH_FWD_D_UNROLL 4
+#endif
+
+constexpr int kMaxStrips = 4;  // strips per block: block_q <= 64
+constexpr int kMaxWideStrips = 2;  // strips per block when wide: 256 threads, block_q <= 32
+constexpr int kMinBlocks = 2;  // blocks per SM the registers are sized for (D <= 80)
+constexpr int kStep = 32;      // keys per online-softmax step
+constexpr int kNT = kStep / 8; // n8 tiles of S per step; warps per strip when wide
+constexpr int kPs = kStep + 8; // row stride (floats) of a wide strip's P buffer
+constexpr int kDUnroll = FLASH_FWD_D_UNROLL;
 
 struct Params {
   const void* q;
@@ -66,212 +104,317 @@ struct Params {
   float scale;
   int causal, window;
   int block_q, block_k;
-  int dp;   // D rounded up to a multiple of 4 (Q and K rows, zero padded)
-  int ks;   // K row stride in floats: dp or dp + 4, so that ks % 8 == 4
+  int dp;           // D rounded up to a multiple of 8 (rows zero padded)
+  int dc;           // dp / 8: k chunks of S
+  int kse;          // shared row stride in elements (4 mod 8 in 4-byte words)
+  int vec;          // copy width of the staged rows: 16, 4 or 2 bytes
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
+// c += a.b with a (b) split when kSA (kSB): small.big and big.small first,
+// then big.big, all into the f32 accumulators.
+template <bool kSA, bool kSB>
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
+  if (kSA && FLASH_FWD_COMPENSATION) mma(c, a.small, b.big);
+  if (kSB && FLASH_FWD_COMPENSATION) mma(c, a.big, b.small);
+  mma(c, a.big, b.big);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// Whether no pair of queries [qa, qb] and keys [ka, kb] is visible.
+__device__ __forceinline__ bool none_visible(const Params& p, int qa, int qb, int ka, int kb) {
+  return qa >= p.Tq || ka >= p.Tk || (p.causal && ka > qb) ||
+         (p.window && kb <= qa - p.window);
 }
 
-template <typename T, int NPER>
-__global__ void __launch_bounds__(kWarp * kMaxWarps) flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                           // [block_q][dp]
-  float* ks = qs + p.block_q * p.dp;          // [block_k][ks]
-  float* vs = ks + p.block_k * p.ks;          // [block_k][D]
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
 
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// The kernel: grid (H, B, ceil(Tq / block_q))
+// ---------------------------------------------------------------------------
+
+template <typename T, int NA, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWarp * kNT * kMaxWideStrips : kWarp * kMaxStrips,
+                                  kWide ? 1 : kMinBlocks)
+flash_fwd_kernel(const Params p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kNTw = kWide ? 1 : kNT;         // n8 tiles of S a warp computes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);       // [block_q][kse]
+  T* kt = qs + p.block_q * p.kse;               // [2][block_k][kse]
+  T* vt = kt + 2 * p.block_k * p.kse;           // [2][block_k][kse]
+  float* pb = reinterpret_cast<float*>(vt + 2 * p.block_k * p.kse + kOverrun);
+  // wide: [strips][kStrip][kPs] P, then [strips][kNT][kStrip] row maxima and
+  // [strips][kNT][kStrip] row sums
+
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int strip = kWide ? warp / kNT : warp;  // the warp's 16 rows of the block
+  const int part = kWide ? warp % kNT : 0;      // wide: its n8 tile of S, its share of D
+  const int c0 = part * NA;                     // first chunk of 8 columns it owns
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int hk = h / (p.H / p.KV);
-  const int q0 = blockIdx.x * p.block_q;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * p.block_q;   // the longest causal rows first
+  const int r0 = strip * kStrip;
+  const int qa = q0 + r0, qb = q0 + r0 + kStrip - 1;         // the strip's rows
   const int D = p.D;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  // Stage the query tile (rows past Tq and columns past D are zeros), and
-  // zero the K pad columns once: tile loads below never write them.
-  for (int e = tid; e < p.block_q * p.dp; e += nthreads) {
-    const int r = e / p.dp, c = e % p.dp;
-    const int qi = q0 + r;
-    qs[e] = (qi < p.Tq && c < D) ? load_f32(qg + qi * p.q_st + c) : 0.f;
-  }
-  for (int e = tid; e < p.block_k * (p.ks - D); e += nthreads) {
-    const int w = p.ks - D;
-    ks[(e / w) * p.ks + D + (e % w)] = 0.f;
-  }
-
   // Key range this query tile can see.
   const int q_last = min(q0 + p.block_q, p.Tq) - 1;
-  int kv_hi = p.causal ? min(p.Tk, q_last + 1) : p.Tk;
+  const int kv_hi = p.causal ? min(p.Tk, q_last + 1) : p.Tk;
   int kv_lo = p.window ? max(0, q0 - p.window + 1) : 0;
   kv_lo = (kv_lo / p.block_k) * p.block_k;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + p.block_k - 1) / p.block_k : 0;
 
-  float m[kRows], l[kRows], acc[kRows][NPER];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NPER; ++i) acc[r][i] = 0.f;
+  stage_rows(qs, qg, p.q_st, q0, p.block_q, p.Tq, p);
+  if (n_tiles > 0) {
+    stage_rows(kt, kg, p.k_st, kv_lo, p.block_k, p.Tk, p);
+    stage_rows(vt, vg, p.v_st, kv_lo, p.block_k, p.Tk, p);
   }
-  const int row0 = warp * kRows;  // first row of this warp within the tile
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
 
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += p.block_k) {
-    __syncthreads();  // previous tile fully consumed (and Q staged)
-    const int n_keys = min(p.block_k, p.Tk - t0);
-    for (int e = tid; e < p.block_k * D; e += nthreads) {
-      const int r = e / D, c = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (r < n_keys) {
-        kx = load_f32(kg + (int64_t)(t0 + r) * p.k_st + c);
-        vx = load_f32(vg + (int64_t)(t0 + r) * p.v_st + c);
-      }
-      ks[r * p.ks + c] = kx;
-      vs[r * D + c] = vx;
+  float acc[NA][4];
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // rows g, g + 8: the running max
+  float l[2] = {0.f, 0.f};               // this lane's share of the row sums
+  float* strip_p = pb + strip * kStrip * kPs;
+  float* strip_max = pb + kMaxWideStrips * kStrip * kPs + strip * kNT * kStrip;
+  float* strip_sum = strip_max + kMaxWideStrips * kNT * kStrip;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    const int t0 = kv_lo + it * p.block_k;
+    if (it + 1 < n_tiles) {   // the next tile flies while this one is computed
+      stage_rows(kt + (buf ^ 1) * p.block_k * p.kse, kg, p.k_st, t0 + p.block_k,
+                 p.block_k, p.Tk, p);
+      stage_rows(vt + (buf ^ 1) * p.block_k * p.kse, vg, p.v_st, t0 + p.block_k,
+                 p.block_k, p.Tk, p);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
+    const T* kb = kt + buf * p.block_k * p.kse;
+    const T* vb = vt + buf * p.block_k * p.kse;
+    const int n_steps = (min(p.block_k, kv_hi - t0) + kStep - 1) / kStep;
 
-    const int n_sub = (min(p.block_k, kv_hi - t0) + kWarp - 1) / kWarp;
-    for (int sub = 0; sub < n_sub; ++sub) {
-      // ---- S = Q K^T for this warp's rows against keys sub*32 + lane ----
-      const int kr = sub * kWarp + lane;
-      const float4* krow = reinterpret_cast<const float4*>(ks + kr * p.ks);
-      float s[kRows];
+    for (int st = 0; st < n_steps; ++st) {
+      const int k0 = t0 + st * kStep;            // first key of the step
+      // a strip that sees none of these keys skips them (wide: the block's
+      // warps meet at barriers below, so every strip takes every step)
+      if (!kWide && none_visible(p, qa, qb, k0, k0 + kStep - 1)) continue;
+      const T* ks = kb + st * kStep * p.kse;
+      const T* vs = vb + st * kStep * p.kse;
+
+      // ---- S = Q K^T: 16 rows x this warp's keys, Q's fragment split at load ----
+      float s[kNTw][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < p.dp / 4; ++c) {
-        const float4 kk = krow[c];
+      for (int n = 0; n < kNTw; ++n)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 qq = reinterpret_cast<const float4*>(qs + (row0 + r) * p.dp)[c];
-          s[r] = fmaf(qq.x, kk.x, s[r]);
-          s[r] = fmaf(qq.y, kk.y, s[r]);
-          s[r] = fmaf(qq.z, kk.z, s[r]);
-          s[r] = fmaf(qq.w, kk.w, s[r]);
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll kDUnroll
+      for (int kc = 0; kc < (FLASH_FWD_SCORES ? p.dc : 0); ++kc) {
+        const int c = kc * 8 + 2 * t;
+        Frag<4> a = load_a(qs, p.kse, r0 + g, c);
+        prepare<kF32>(a);
+#pragma unroll
+        for (int n = 0; n < kNTw; ++n) {
+          Frag<2> f = load_bt(ks, p.kse, (part + n) * 8 + g, c);
+          prepare<kF32>(f);
+          mma3<kF32, kF32>(s[n], a, f);
         }
       }
 
-      // ---- masks and the online-softmax update ----
-      const int kpos = t0 + kr;
-      float pr[kRows];
+      // ---- masks, the row max and P, in place of S ----
+      const bool whole = all_visible(p, qa, qb, k0, k0 + kStep - 1);
+      float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int qpos = q0 + row0 + r;
-        bool ok = qpos < p.Tq && kpos < p.Tk;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window) ok = ok && kpos > qpos - p.window;
-        const float sv = ok ? s[r] * p.scale : -INFINITY;
-        const float m_new = fmaxf(m[r], warp_max(sv));
-        const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
-        const float pv = expf(sv - m_safe);
-        const float alpha = (m[r] == -INFINITY) ? 0.f : expf(m[r] - m_safe);
-        l[r] = alpha * l[r] + warp_sum(pv);
-        m[r] = m_new;
+      for (int n = 0; n < kNTw; ++n) {
 #pragma unroll
-        for (int i = 0; i < NPER; ++i) acc[r][i] *= alpha;
-        pr[r] = pv;
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          const bool ok = whole || visible(p, qa + g + 8 * i,
+                                           k0 + (part + n) * 8 + 2 * t + e % 2);
+          s[n][e] = ok ? s[n][e] * p.scale : -INFINITY;
+          mt[i] = fmaxf(mt[i], s[n][e]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mt[i] = quad_max(mt[i]);
+      if constexpr (kWide) {   // the strip's row max over its 4 warps' keys
+        if (t == 0) {
+          strip_max[part * kStrip + g] = mt[0];
+          strip_max[part * kStrip + g + 8] = mt[1];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int w = 0; w < kNT; ++w) mt[i] = fmaxf(mt[i], strip_max[w * kStrip + g + 8 * i]);
+      }
+      float alpha[2], m_safe[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], mt[i]);
+        m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe[i]);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < kNTw; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          s[n][e] = expf(s[n][e] - m_safe[i]);   // masked: exp(-inf) = 0
+          l[i] += s[n][e];
+        }
       }
 
-      // ---- O += P V: lanes split D ----
-      for (int jj = 0; jj < kWarp; ++jj) {
-        const float* vrow = vs + (sub * kWarp + jj) * D;
-        float vv[NPER];
+      // ---- O = alpha O + P V over the columns this warp owns ----
+      Frag<4> pa[kNT];
+      if constexpr (kWide) {
+        *reinterpret_cast<float2*>(strip_p + g * kPs + part * 8 + 2 * t) =
+            make_float2(s[0][0], s[0][1]);
+        *reinterpret_cast<float2*>(strip_p + (g + 8) * kPs + part * 8 + 2 * t) =
+            make_float2(s[0][2], s[0][3]);
+        __syncthreads();
 #pragma unroll
-        for (int i = 0; i < NPER; ++i) {
-          const int d = lane + i * kWarp;
-          vv[i] = d < D ? vrow[d] : 0.f;
+        for (int n = 0; n < kNT; ++n) {
+          const float2 lo = *reinterpret_cast<const float2*>(strip_p + g * kPs + n * 8 + 2 * t);
+          const float2 hi =
+              *reinterpret_cast<const float2*>(strip_p + (g + 8) * kPs + n * 8 + 2 * t);
+          pa[n] = acc_as_a(lo.x, lo.y, hi.x, hi.y);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) pa[n] = acc_as_a(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        float part_sum[4] = {0.f, 0.f, 0.f, 0.f};
+        const int col = (c0 + j) * 8 + g;
+#pragma unroll
+        for (int n = 0; n < (FLASH_FWD_PV ? kNT : 0); ++n) {
+          Frag<2> f = load_bn(vs, p.kse, n * 8 + 2 * t, col);
+          prepare<kF32>(f);
+          mma3<true, kF32>(part_sum, pa[n], f);
         }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float pj = __shfl_sync(kFull, pr[r], jj);
-#pragma unroll
-          for (int i = 0; i < NPER; ++i) acc[r][i] = fmaf(pj, vv[i], acc[r][i]);
-        }
+        for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], alpha[e / 2], part_sum[e]);
       }
     }
+    __syncthreads();   // this buffer is refilled at the next tile
   }
 
-  // ---- finalize: out = acc / l, lse = m + log(l); empty rows -> 0, -inf ----
+  // ---- finalize: out = O / l, lse = m + log(l); empty rows -> 0, -inf ----
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+  if constexpr (kWide) {   // the strip's row sums over its 4 warps' keys
+    if (t == 0) {
+      strip_sum[part * kStrip + g] = l[0];
+      strip_sum[part * kStrip + g + 8] = l[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = 0.f;
+#pragma unroll
+      for (int w = 0; w < kNT; ++w) l[i] += strip_sum[w * kStrip + g + 8 * i];
+    }
+  }
   T* og = static_cast<T*>(p.out);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row0 + r;
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qa + g + 8 * i;
     if (qpos >= p.Tq) continue;
-    const bool empty = l[r] == 0.f;
-    const float l_safe = empty ? 1.f : l[r];
-    T* orow = og + (((int64_t)b * p.Tq + qpos) * p.H + h) * D;
+    const bool empty = l[i] == 0.f;
+    const float l_safe = empty ? 1.f : l[i];   // an empty row's O is 0
+    T* row = og + (((int64_t)b * p.Tq + qpos) * p.H + h) * D;
 #pragma unroll
-    for (int i = 0; i < NPER; ++i) {
-      const int d = lane + i * kWarp;
-      if (d < D) store_from_f32(orow + d, acc[r][i] / l_safe);
+    for (int j = 0; j < NA; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = (c0 + j) * 8 + 2 * t + e;
+        if (d < D) store_from_f32(row + d, acc[j][2 * i + e] / l_safe);
+      }
     }
-    if (lane == 0) {
-      p.lse[((int64_t)b * p.H + h) * p.Tq + qpos] =
-          empty ? -INFINITY : m[r] + logf(l_safe);
+    if (t == 0 && part == 0) {
+      p.lse[((int64_t)b * p.H + h) * p.Tq + qpos] = empty ? -INFINITY : m[i] + logf(l_safe);
     }
   }
 }
 
-template <typename T, int NPER>
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of a block: block_q rows of Q, two buffers of block_k
+// rows of K and of V, room for reads past the last row's D, and for wide heads
+// each of the (at most 2) strips' P buffer, row maxima and row sums.
+// kernels/flash_attention.py:fwd_shared_bytes sizes the tiles by the same
+// formula; chip_smoke.py and the card tests hold the two equal through
+// flash_attention_fwd_shared_bytes.
+size_t shared_bytes(int D, int elem, int block_q, int block_k) {
+  size_t n = (size_t)elem * ((size_t)row_stride(D, elem) * (block_q + 4 * block_k) + kOverrun);
+  if (is_wide(D)) n += sizeof(float) * kMaxWideStrips * kStrip * (kPs + 2 * kNT);
+  return n;
+}
+
+template <typename T, int NA, bool kWide>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)p.block_q * p.dp + (size_t)p.block_k * p.ks +
-                       (size_t)p.block_k * p.D);
-  auto kernel = flash_fwd_kernel<T, NPER>;
+  const size_t smem = shared_bytes(p.D, (int)sizeof(T), p.block_q, p.block_k);
+  auto kernel = flash_fwd_kernel<T, NA, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tq + p.block_q - 1) / p.block_q, p.H, p.B);
-  const dim3 block((p.block_q / kRows) * kWarp);
+  const dim3 grid(p.H, p.B, (p.Tq + p.block_q - 1) / p.block_q);
+  const dim3 block((p.block_q / kStrip) * (kWide ? kNT : 1) * kWarp);
   kernel<<<grid, block, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Accumulator widths compiled, in chunks of 8 columns per warp: the smallest
+// that covers the warp's share of D.
 template <typename T>
-cudaError_t dispatch_d(const Params& p, cudaStream_t stream) {
-  switch ((p.D + kWarp - 1) / kWarp) {
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
-    case 4: return launch<T, 4>(p, stream);
-    case 5: return launch<T, 5>(p, stream);
-    case 6: return launch<T, 6>(p, stream);
-    case 7: return launch<T, 7>(p, stream);
-    case 8: return launch<T, 8>(p, stream);
-    default: return cudaErrorInvalidValue;
+cudaError_t dispatch_width(const Params& p, cudaStream_t stream) {
+  if (!is_wide(p.D)) {
+    if (p.dc <= 2) return launch<T, 2, false>(p, stream);
+    if (p.dc <= 4) return launch<T, 4, false>(p, stream);
+    if (p.dc <= 8) return launch<T, 8, false>(p, stream);
+    return launch<T, kMaxWidth, false>(p, stream);
   }
+  const int need = (p.dc + kNT - 1) / kNT;
+  if (need <= 4) return launch<T, 4, true>(p, stream);
+  if (need <= 6) return launch<T, 6, true>(p, stream);
+  if (need <= 8) return launch<T, 8, true>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns a
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  block_q is a
+// multiple of 16 up to 64 (32 for D > 80), block_k a positive multiple of 32.  Returns a
 // cudaError_t (0 on success); nothing is synchronised.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                         void* lse, int dtype, int B, int Tq, int Tk, int H,
@@ -281,9 +424,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                         long long v_sh, float scale, int causal, int window,
                         int block_q, int block_k, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 ||
-      D > kMaxD || block_q < kRows || block_q % kRows != 0 ||
-      block_q / kRows > kMaxWarps || block_k < kWarp || block_k % kWarp != 0 ||
-      B > 65535 || H > 65535 || window < 0) {
+      D > kMaxD || block_q < kStrip || block_q % kStrip != 0 ||
+      block_q / kStrip > (is_wide(D) ? kMaxWideStrips : kMaxStrips) ||
+      block_k < kStep || block_k % kStep != 0 ||
+      B > 65535 || (Tq + block_q - 1) / block_q > 65535 || window < 0 ||
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -294,12 +439,25 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.scale = scale; p.causal = causal; p.window = window;
   p.block_q = block_q; p.block_k = block_k;
-  p.dp = (D + 3) / 4 * 4;
-  p.ks = (p.dp % 8 == 4) ? p.dp : p.dp + 4;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(p, st);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(p, st);
-  return (int)cudaErrorInvalidValue;
+  p.dp = (D + 7) / 8 * 8;
+  p.dc = p.dp / 8;
+  const int elem = dtype == 0 ? 4 : 2;
+  p.kse = row_stride(D, elem);
+  const void* staged[3] = {q, k, v};
+  const int64_t* st[3] = {&p.q_sb, &p.k_sb, &p.v_sb};
+  p.vec = 16;
+  for (int i = 0; i < 3; ++i) {
+    if (!aligned(staged[i], st[i], elem, 16)) p.vec = p.vec < 4 ? p.vec : 4;
+    if (!aligned(staged[i], st[i], elem, 4)) p.vec = 2;
+  }
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_width<float>(p, stm);
+  return (int)dispatch_width<__nv_bfloat16>(p, stm);
+}
+
+// Dynamic shared memory in bytes of one block at these tiles.
+long long flash_attention_fwd_shared_bytes(int dtype, int D, int block_q, int block_k) {
+  return (long long)shared_bytes(D, dtype == 0 ? 4 : 2, block_q, block_k);
 }
 
 const char* flash_attention_fwd_error_string(int err) {

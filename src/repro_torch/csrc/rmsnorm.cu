@@ -14,20 +14,23 @@
 // (in + out bytes) + D * w bytes at 3.35 TB/s, 25.0 us at (4096, 2560) f32.
 //
 // What the design does about it.
-//   * One warp owns one row at a time; a block of kWarps warps walks its
-//     block_rows rows (the tuned parameter, as the TPU kernel's row tile
-//     was), so the row sum is a register sum plus five warp shuffles and
-//     needs no shared memory.  Rows are independent: blocks run in any order.
-//   * The last row tile is masked, so any block_rows works at any row count
-//     (the TPU kernel needed block_rows to divide rows).
-//   * 16-byte vector loads and stores where the row start, the row stride,
-//     D and the pointers allow them (4 f32 or 8 bf16 per access, neighbouring
-//     lanes on neighbouring addresses), scalar accesses otherwise.  Loops are
-//     unrolled so a lane keeps several loads in flight.
-//   * The row is read twice (sum of squares, then scale), the second time
-//     right after the first, so that read is meant to hit L1 or L2 (a row is
-//     a few tens of KB) and device memory to see one read and one write per
-//     element.
+//   * The card is filled whatever the row tile: a tile of block_rows rows
+//     (the tuned parameter, as the TPU kernel's row tile was) is spread over
+//     ceil(block_rows / kWarps) blocks of kWarps warps, one warp per row, so
+//     4096 rows give 1024 small blocks, several per SM, whatever block_rows
+//     is.  The last row tile is masked, so any block_rows works at any row
+//     count (the TPU kernel needed block_rows to divide rows).  Rows are
+//     independent: blocks run in any order.
+//   * A row is read once: where it fits (16-byte vectors, at most kMaxVecs
+//     per lane: D <= 3072 in f32, 6144 in bf16), a lane holds its share of
+//     the row in registers between the sum of squares and the scale, and
+//     issues all its loads before the first use, so each warp keeps a whole
+//     row's bytes in flight.  The row sum is a register sum plus five warp
+//     shuffles; no shared memory.
+//   * Wider rows, or rows that are not 16-byte aligned, take two passes over
+//     the row (sum of squares, then scale), the second meant to hit L1 or L2,
+//     with 16-byte accesses where the alignment allows and scalar ones
+//     otherwise.
 //   * Anything it cannot take (rows, D or block_rows below 1, a dtype code it
 //     does not know) is refused with cudaErrorInvalidValue.
 
@@ -38,11 +41,11 @@
 
 namespace {
 
-// 16 warps per block: at the default block_rows of 128 a (4096, 2560) input
-// gives 32 blocks, and 8 warps each kept too few loads in flight per SM
-// (scripts/torch_rmsnorm_warps.py compares 8, 16 and 32 on the card)
-constexpr int kWarps = 16;
+// 4 warps (rows) per block: (4096, 2560) gives 1024 blocks over 132 SMs
+// (scripts/torch_rmsnorm_warps.py compares other counts on the card)
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxVecs = 24;   // 16-byte vectors a lane holds: 96 registers
 constexpr int kUnroll = 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -63,70 +66,125 @@ struct alignas(sizeof(T) * N) Pack {
   T v[N];
 };
 
-template <typename T, typename TW, bool kVector>
+// The row this warp owns, or -1: block i covers rows [kWarps * (i % splits),
+// + kWarps) of row tile i / splits.
+__device__ __forceinline__ long long warp_row(long long rows, int block_rows, int splits) {
+  const long long tile = blockIdx.x / splits;
+  const int sub = blockIdx.x % splits;
+  const int in_tile = sub * kWarps + (int)(threadIdx.x >> 5);
+  const long long r = tile * block_rows + in_tile;
+  return (in_tile < block_rows && r < rows) ? r : -1;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// One read per element: the lane's NV vectors of the row stay in registers.
+template <typename T, typename TW, int NV>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-               T* __restrict__ y, long long rows, int D, long long x_stride,
-               int block_rows, float eps) {
+rmsnorm_held_kernel(const T* __restrict__ x, const TW* __restrict__ w, T* __restrict__ y,
+                    long long rows, int D, long long x_stride, int block_rows, int splits,
+                    float eps) {
   constexpr int kVec = 16 / sizeof(T);   // 4 f32 or 8 bf16
   using XPack = Pack<T, kVec>;
   using WPack = Pack<TW, kVec>;
-  const int warp = threadIdx.x >> 5;
+  const long long r = warp_row(rows, block_rows, splits);
+  if (r < 0) return;
   const int lane = threadIdx.x & 31;
-  const long long row0 = (long long)blockIdx.x * block_rows;
-  const long long row_end = min(row0 + (long long)block_rows, rows);
-  const float inv_d = 1.0f / (float)D;
-
-  for (long long r = row0 + warp; r < row_end; r += kWarps) {
-    const T* xr = x + r * x_stride;
-    T* yr = y + r * (long long)D;
-    float ss = 0.f;
-    if (kVector) {
-      const int n = D / kVec;
-      const XPack* xp = reinterpret_cast<const XPack*>(xr);
-#pragma unroll kUnroll
-      for (int c = lane; c < n; c += 32) {
-        const XPack p = xp[c];
+  const int n = D / kVec;
+  const XPack* xp = reinterpret_cast<const XPack*>(x + r * x_stride);
+  XPack v[NV];
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          const float v = to_f32(p.v[i]);
-          ss += v * v;
-        }
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < n) v[i] = xp[c];
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i < n) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float f = to_f32(v[i].v[e]);
+        ss += f * f;
       }
-    } else {
+    }
+  }
+  const float inv = rsqrtf(warp_sum(ss) * (1.0f / (float)D) + eps);
+  const WPack* wp = reinterpret_cast<const WPack*>(w);
+  XPack* yp = reinterpret_cast<XPack*>(y + r * (long long)D);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < n) {
+      const WPack q = wp[c];
+      XPack o;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) o.v[e] = from_f32<T>(to_f32(v[i].v[e]) * inv * to_f32(q.v[e]));
+      yp[c] = o;
+    }
+  }
+}
+
+// Two passes over the row: wide rows (16-byte vectors when kVector), or
+// scalar accesses where the alignment allows no vectors.
+template <typename T, typename TW, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_two_pass_kernel(const T* __restrict__ x, const TW* __restrict__ w, T* __restrict__ y,
+                        long long rows, int D, long long x_stride, int block_rows,
+                        int splits, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  using XPack = Pack<T, kVec>;
+  using WPack = Pack<TW, kVec>;
+  const long long r = warp_row(rows, block_rows, splits);
+  if (r < 0) return;
+  const int lane = threadIdx.x & 31;
+  const T* xr = x + r * x_stride;
+  T* yr = y + r * (long long)D;
+  float ss = 0.f;
+  if (kVector) {
+    const int n = D / kVec;
+    const XPack* xp = reinterpret_cast<const XPack*>(xr);
 #pragma unroll kUnroll
-      for (int i = lane; i < D; i += 32) {
-        const float v = to_f32(xr[i]);
+    for (int c = lane; c < n; c += 32) {
+      const XPack p = xp[c];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float v = to_f32(p.v[i]);
         ss += v * v;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  } else {
+#pragma unroll kUnroll
+    for (int i = lane; i < D; i += 32) {
+      const float v = to_f32(xr[i]);
+      ss += v * v;
     }
-    const float inv = rsqrtf(ss * inv_d + eps);
-
-    if (kVector) {
-      const int n = D / kVec;
-      const XPack* xp = reinterpret_cast<const XPack*>(xr);
-      const WPack* wp = reinterpret_cast<const WPack*>(w);
-      XPack* yp = reinterpret_cast<XPack*>(yr);
+  }
+  const float inv = rsqrtf(warp_sum(ss) * (1.0f / (float)D) + eps);
+  if (kVector) {
+    const int n = D / kVec;
+    const XPack* xp = reinterpret_cast<const XPack*>(xr);
+    const WPack* wp = reinterpret_cast<const WPack*>(w);
+    XPack* yp = reinterpret_cast<XPack*>(yr);
 #pragma unroll kUnroll
-      for (int c = lane; c < n; c += 32) {
-        const XPack p = xp[c];
-        const WPack q = wp[c];
-        XPack o;
+    for (int c = lane; c < n; c += 32) {
+      const XPack p = xp[c];
+      const WPack q = wp[c];
+      XPack o;
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          o.v[i] = from_f32<T>(to_f32(p.v[i]) * inv * to_f32(q.v[i]));
-        }
-        yp[c] = o;
+      for (int i = 0; i < kVec; ++i) {
+        o.v[i] = from_f32<T>(to_f32(p.v[i]) * inv * to_f32(q.v[i]));
       }
-    } else {
+      yp[c] = o;
+    }
+  } else {
 #pragma unroll kUnroll
-      for (int i = lane; i < D; i += 32) {
-        yr[i] = from_f32<T>(to_f32(xr[i]) * inv * to_f32(w[i]));
-      }
+    for (int i = lane; i < D; i += 32) {
+      yr[i] = from_f32<T>(to_f32(xr[i]) * inv * to_f32(w[i]));
     }
   }
 }
@@ -141,17 +199,29 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows,
       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(w) % (sizeof(TW) * kVec) == 0;
-  const long long grid = (rows + block_rows - 1) / block_rows;
+  const int splits = (block_rows + kWarps - 1) / kWarps;
+  const long long grid = (rows + block_rows - 1) / block_rows * splits;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const TW* wt = static_cast<const TW*>(w);
   T* yt = static_cast<T*>(y);
-  if (vector) {
-    rmsnorm_kernel<T, TW, true><<<(unsigned)grid, kThreads, 0, stream>>>(
-        xt, wt, yt, rows, D, x_stride, block_rows, eps);
-  } else {
-    rmsnorm_kernel<T, TW, false><<<(unsigned)grid, kThreads, 0, stream>>>(
-        xt, wt, yt, rows, D, x_stride, block_rows, eps);
-  }
+  const unsigned blocks = (unsigned)grid;
+  const int per_lane = (D / kVec + 31) / 32;   // vectors a lane holds
+#define HELD(NV)                                                              \
+  rmsnorm_held_kernel<T, TW, NV><<<blocks, kThreads, 0, stream>>>(           \
+      xt, wt, yt, rows, D, x_stride, block_rows, splits, eps)
+  if (vector && per_lane <= 4) HELD(4);
+  else if (vector && per_lane <= 8) HELD(8);
+  else if (vector && per_lane <= 16) HELD(16);
+  else if (vector && per_lane <= 20) HELD(20);
+  else if (vector && per_lane <= kMaxVecs) HELD(kMaxVecs);
+  else if (vector)
+    rmsnorm_two_pass_kernel<T, TW, true><<<blocks, kThreads, 0, stream>>>(
+        xt, wt, yt, rows, D, x_stride, block_rows, splits, eps);
+  else
+    rmsnorm_two_pass_kernel<T, TW, false><<<blocks, kThreads, 0, stream>>>(
+        xt, wt, yt, rows, D, x_stride, block_rows, splits, eps);
+#undef HELD
   return cudaGetLastError();
 }
 
@@ -175,8 +245,7 @@ int rmsnorm(const void* x, const void* w, void* y, int x_dtype, int w_dtype,
             long long rows, int D, long long x_stride, int block_rows,
             float eps, void* stream) {
   if (rows < 1 || D < 1 || block_rows < 1 || x_stride < D ||
-      (x_dtype != 0 && x_dtype != 1) || (w_dtype != 0 && w_dtype != 1) ||
-      (rows + block_rows - 1) / block_rows > 0x7fffffffLL) {
+      (x_dtype != 0 && x_dtype != 1) || (w_dtype != 0 && w_dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

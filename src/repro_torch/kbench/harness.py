@@ -3,8 +3,10 @@
 Counterpart of ``repro/kbench/harness.py``.  Measures the public entry points
 in ``kernels/ops.py`` (flash attention K1, SSD intra-chunk K5, rmsnorm K4)
 with the reference's numpy-seeded inputs, op names, shape keys and FLOP
-formulas: warmup calls, then each timed call bracketed by CUDA events and
-synchronised, median of ``trials``.  Tables are stamped ``cuda:<card name>``.
+formulas: warmup calls, then ``trials`` timed trials, each a run of calls
+back to back between one pair of CUDA events (at least 1 ms of device
+time) divided by its count, so that no sample holds the wrapper's host time
+of a single call; median of ``trials``.  Tables are stamped ``cuda:<card name>``.
 The CPU runs the kernels' plain versions, timed with ``time.perf_counter``,
 and only when asked (``run_device="cpu"``); its cells are stamped
 ``cpu:<machine>:plain`` so that a CPU table is never taken for a card's.
@@ -88,11 +90,12 @@ def _flash_default(shape):
 
 
 def _flash_grid(shape):
-    """The tiles K1 takes at this head dim: block_q a multiple of 4 up to
-    64, block_k a multiple of 32, all within a block's shared memory."""
+    """The tiles K1 takes at this head dim: block_q a multiple of 16 up to
+    64 (32 for heads past 80), block_k a multiple of 32, all within a
+    block's shared memory."""
     D = shape[-1]
     return [(bq, bk) for bq in (16, 32, 64) for bk in (32, 64, 128)
-            if _fa.fits_shared_memory(D, bq, bk)]
+            if _fa.tile_fits(D, bq, bk)]
 
 
 def _rmsnorm_inputs(shape, seed):
@@ -194,18 +197,47 @@ def device_fingerprint(run_device: DeviceLike = None) -> str:
     return f"cpu:{platform.machine() or 'unknown'}:plain"
 
 
-def _time_s(fn, dev: torch.device) -> float:
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+# A timed trial on the card spans at least this long: the number of calls
+# back to back between its two events doubles from 1 until it does
+MIN_TRIAL_S = 1e-3
+MAX_REPS = 1 << 14
+
+
+def _cuda_seconds(fn, reps: int) -> float:
+    """Seconds of ``reps`` calls back to back between one pair of CUDA
+    events, so that the wrapper's host time overlaps the device's work."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
         fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _host_seconds(fn, reps: int) -> float:
     t0 = time.perf_counter()
-    fn()
+    for _ in range(reps):
+        fn()
     return time.perf_counter() - t0
+
+
+def calls_per_trial(fn, timer: Callable = _cuda_seconds,
+                    min_s: float = MIN_TRIAL_S) -> int:
+    """The calls a trial runs back to back: doubled from 1 until ``timer(fn,
+    reps)`` spans at least ``min_s`` (at most MAX_REPS)."""
+    reps = 1
+    while reps < MAX_REPS and timer(fn, reps) < min_s:
+        reps *= 2
+    return reps
+
+
+def trial_seconds(fn, trials: int, reps: int,
+                  timer: Callable = _cuda_seconds) -> List[float]:
+    """Seconds per call of each trial: ``reps`` calls timed together,
+    divided by ``reps``."""
+    return [timer(fn, reps) / reps for _ in range(max(1, trials))]
 
 
 def bench_op(op: str, shape: Sequence[int], *,
@@ -213,7 +245,13 @@ def bench_op(op: str, shape: Sequence[int], *,
              trials: int = 5, warmup: int = 2,
              run_device: DeviceLike = None,
              seed: int = 0) -> BenchResult:
-    """Median-of-``trials`` latency of one (op, shape, blocks) cell."""
+    """Median-of-``trials`` latency of one (op, shape, blocks) cell.
+
+    On the card each trial is :func:`calls_per_trial` calls back to back
+    between one pair of CUDA events (at least ``MIN_TRIAL_S`` of device
+    time), divided by their count; the calls that choose that count come
+    after the warmup and are not timed samples.  On the CPU each trial is one
+    call on the host clock."""
     spec = OPS[op]
     shape = tuple(int(d) for d in shape)
     dev = _resolve(run_device)
@@ -227,7 +265,9 @@ def bench_op(op: str, shape: Sequence[int], *,
             fn()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        samples: List[float] = [_time_s(fn, dev) for _ in range(max(1, trials))]
+            samples = trial_seconds(fn, trials, calls_per_trial(fn))
+        else:
+            samples = trial_seconds(fn, trials, 1, _host_seconds)
     return BenchResult(op=op, shape=shape, blocks=blocks,
                        median_s=float(statistics.median(samples)),
                        trials_s=tuple(samples), flops=spec.flops(shape),

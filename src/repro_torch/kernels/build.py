@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``repro_torch/csrc`` and load them.
 
 Each ``.cu`` file is compiled by ``nvcc`` into its own shared library with a
-plain C interface, loaded with ``ctypes``.  Libraries go to
-``build/repro_torch_kernels/`` at the repository root, named by a hash of
-the source and the flags, so a stale library is never loaded.  Nothing is
+plain C interface, loaded with ``ctypes``; the flash attention sources share
+the header ``flash_mma.cuh``.  Libraries go to ``build/repro_torch_kernels/``
+at the repository root, named by a hash of the source, the headers beside
+it and the flags, so a stale library is never loaded.  Nothing is
 built at import time: the first launch builds what it needs, and
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
@@ -49,7 +50,8 @@ def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
 
 def library_path(source: str, defines: Tuple[str, ...] = ()) -> Path:
     """Where the library of ``source`` built with ``-D`` ``defines`` goes."""
-    text = (CSRC / source).read_bytes() + " ".join(_flags(defines)).encode()
+    files = [CSRC / source, *sorted(CSRC.glob("*.cuh"))]
+    text = b"".join(f.read_bytes() for f in files) + " ".join(_flags(defines)).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

@@ -31,27 +31,83 @@ from repro_torch.kernels.ref import (
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 256
-ROWS_PER_WARP = 4     # kRows in the source
-MAX_BLOCK_Q = 64      # kRows * kMaxWarps in the source
 MAX_SHARED_BYTES = 232448   # a block's dynamic shared memory on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
 _bwd_fns = None
 
+# The forward kernel (csrc/flash_attention_fwd.cu): a warp owns a 16-row
+# strip (the m16 of the tensor cores' mma), a block up to 4 strips; K and V
+# come in tiles of block_k keys, double-buffered, consumed in steps of 32.
+# Heads past 80 columns take the wide form, where the 4 warps of a strip
+# share D, at most 2 strips a block.  ``fwd_shared_bytes`` is the kernel's
+# own size of a block (``flash_attention_fwd_shared_bytes``), held equal on
+# the card.
+ROWS_PER_WARP = 16    # kStrip in the source
+MAX_BLOCK_Q = 64      # kStrip * kMaxStrips
+MAX_WIDE_BLOCK_Q = 32 # kStrip * kMaxWideStrips
+KEY_STEP = 32         # kStep: block_k is a multiple of it
+FWD_MAX_WIDTH = 10    # kMaxWidth: chunks of 8 columns per warp
+FWD_OVERRUN = 64      # kOverrun: elements read past the last staged row
+
+
+def fwd_wide(head_dim: int) -> bool:
+    """Whether the forward kernel takes its wide form (D > 80)."""
+    return -(-head_dim // 8) > FWD_MAX_WIDTH
+
+
+def _row_stride_words(head_dim: int, elem: int) -> int:
+    """A staged row in 4-byte words: D padded to a multiple of 8 elements
+    and to 4 mod 8 words."""
+    words = -(-head_dim // 8) * 8 * elem // 4
+    return words if words % 8 == 4 else words + 4
+
+
+def fwd_shared_bytes(head_dim: int, block_q: int, block_k: int,
+                     elem: int = 4) -> int:
+    """Dynamic shared memory of a forward block: block_q rows of q, two
+    buffers of block_k rows of k and of v, room for reads past the last
+    row, and for wide heads each of the 2 strips' f32 P buffer (16 x 40)
+    with its row maxima and sums (16 x 4 each)."""
+    n = (4 * _row_stride_words(head_dim, elem) * (block_q + 4 * block_k)
+         + FWD_OVERRUN * elem)
+    if fwd_wide(head_dim):
+        n += 4 * MAX_WIDE_BLOCK_Q * (KEY_STEP + 8 + 8)
+    return n
+
+
+def fits_shared_memory(head_dim: int, block_q: int, block_k: int,
+                       elem: int = 4) -> bool:
+    """Whether a forward block at these tiles fits a block's 227 KB of
+    shared memory (``elem``: bytes per element, 4 for f32, 2 for bf16)."""
+    return fwd_shared_bytes(head_dim, block_q, block_k, elem) <= MAX_SHARED_BYTES
+
+
+def tile_rule(head_dim: int, block_q: int, block_k: int) -> Optional[str]:
+    """Why the forward kernel refuses (block_q, block_k) at this head dim by
+    its block rules, or None where it takes them."""
+    top = MAX_WIDE_BLOCK_Q if fwd_wide(head_dim) else MAX_BLOCK_Q
+    if block_q % ROWS_PER_WARP or not ROWS_PER_WARP <= block_q <= top:
+        return (f"block_q={block_q}: a multiple of {ROWS_PER_WARP} up to "
+                f"{top} at head dim {head_dim}")
+    if block_k % KEY_STEP or block_k < KEY_STEP:
+        return f"block_k={block_k}: a positive multiple of {KEY_STEP}"
+    return None
+
+
+def tile_fits(head_dim: int, block_q: int, block_k: int, elem: int = 4) -> bool:
+    """Whether the forward kernel launches at these tiles: its block rules
+    and shared memory."""
+    return (tile_rule(head_dim, block_q, block_k) is None
+            and fits_shared_memory(head_dim, block_q, block_k, elem))
+
 
 def default_blocks(head_dim: int) -> Tuple[int, int]:
-    """(block_q, block_k) when nothing is tuned: 32 query rows (8 warps),
-    and 64 keys unless wide heads need the shared memory (D > 128)."""
-    return 32, (64 if head_dim <= 128 else 32)
-
-
-def fits_shared_memory(head_dim: int, block_q: int, block_k: int) -> bool:
-    """Whether the forward kernel's f32 tiles of q (block_q rows), k and v
-    (block_k rows, k's padded) fit a block's 227 KB of shared memory."""
-    dp = (head_dim + 3) // 4 * 4
-    ks = dp if dp % 8 == 4 else dp + 4
-    return 4 * (block_q * dp + block_k * ks + block_k * head_dim) <= MAX_SHARED_BYTES
+    """(block_q, block_k) when nothing is tuned: 64 query rows (4 strips)
+    and 64 keys; for wide heads (D > 80) 32 rows (2 strips) and 32 keys,
+    whose f32 tiles fit shared memory up to D = 256."""
+    return (32, 32) if fwd_wide(head_dim) else (64, 64)
 
 
 # The backward kernels (csrc/flash_attention_bwd.cu): a warp owns a 16-row
@@ -103,17 +159,31 @@ def bwd_blocks(head_dim: int) -> Tuple[int, int]:
     raise ValueError(f"head dim {head_dim}: no backward block fits shared memory")
 
 
+def bind_fwd(lib: ctypes.CDLL):
+    """(lib, launch, shared bytes) of a built forward library."""
+    fn = lib.flash_attention_fwd
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 9
+                   + [ctypes.c_float] + [i32] * 4 + [ptr])
+    fn.restype = i32
+    size = lib.flash_attention_fwd_shared_bytes
+    size.argtypes = [i32] * 4
+    size.restype = i64
+    return lib, fn, size
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        lib = build.load(SOURCE)
-        fn = lib.flash_attention_fwd
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 9
-                       + [ctypes.c_float] + [i32] * 4 + [ptr])
-        fn.restype = i32
-        _fn = (lib, fn)
+        _fn = bind_fwd(build.load(SOURCE))
     return _fn
+
+
+def fwd_kernel_shared_bytes(head_dim: int, block_q: int, block_k: int,
+                            elem: int = 4) -> int:
+    """The forward kernel's own size of a block (builds it), which
+    :func:`fwd_shared_bytes` must equal."""
+    return int(_kernel()[2](0 if elem == 4 else 1, head_dim, block_q, block_k))
 
 
 def _check_qkv(q, k, v):
@@ -138,23 +208,29 @@ def _check_qkv(q, k, v):
 
 def _check(q, k, v, block_q, block_k):
     _check_qkv(q, k, v)
-    if block_q % ROWS_PER_WARP or not ROWS_PER_WARP <= block_q <= MAX_BLOCK_Q:
-        raise ValueError(f"block_q={block_q}: a multiple of {ROWS_PER_WARP} "
-                         f"up to {MAX_BLOCK_Q}")
-    if block_k % 32 or block_k < 32:
-        raise ValueError(f"block_k={block_k}: a positive multiple of 32")
+    why = tile_rule(q.shape[-1], block_q, block_k)
+    if why:
+        raise ValueError(why)
+    D, elem = q.shape[-1], q.element_size()
+    need = fwd_shared_bytes(D, block_q, block_k, elem)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"tiles ({block_q}, {block_k}) at head dim {D}, "
+                         f"{elem}-byte elements need {need} bytes of shared "
+                         f"memory; a block has {MAX_SHARED_BYTES}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0,
                         block_q: Optional[int] = None,
-                        block_k: Optional[int] = None
+                        block_k: Optional[int] = None, kernel=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, T, H, D); k, v (B, S, KV, D) -> (out (B, T, H, D), lse (B, H, T)).
 
     Same contract as the TPU kernel: scale ``D**-0.5``, causal ``k <= q``,
     window ``k > q - window``, GQA kv head ``h // (H // KV)``, out in q's
-    dtype, float32 lse, zero out and ``-inf`` lse on fully masked rows."""
+    dtype, float32 lse, zero out and ``-inf`` lse on fully masked rows.
+    ``kernel`` (from :func:`bind_fwd`) stands in for the built library in
+    scripts that time builds of the source with other switches."""
     bq, bk = default_blocks(q.shape[-1])
     block_q = bq if block_q is None else int(block_q)
     block_k = bk if block_k is None else int(block_k)
@@ -170,7 +246,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    lib, fn = _kernel()
+    lib, fn, _ = kernel or _kernel()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), _DTYPE_CODE[q.dtype], B, T, S, H, KV, D,

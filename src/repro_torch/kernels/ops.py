@@ -67,6 +67,27 @@ def tuned_blocks(op: str, shape):
 # ---------------------------------------------------------------------------
 
 
+def flash_blocks(shape, elem: int = 4, block_q: Optional[int] = None,
+                 block_k: Optional[int] = None):
+    """The (block_q, block_k) the forward kernel launches with at ``shape``
+    (B, T, S, H, KV, D) and ``elem`` bytes per element.  Blocks of None
+    resolve through the tuned-block registry, else the kernel's defaults.  A
+    resolved tile the kernel does not take at this head dim (the registry's
+    nearest shape may have another one) gives way to the default; explicit
+    blocks are kept, and the wrapper refuses them if the kernel cannot
+    launch them."""
+    D = int(shape[-1])
+    default = _fa.default_blocks(D)
+    tuned = (tuned_blocks("flash_attention", shape)
+             if block_q is None or block_k is None else None)
+    for tq, tk in (tuned or default, default):
+        bq = tq if block_q is None else block_q
+        bk = tk if block_k is None else block_k
+        if _fa.tile_fits(D, bq, bk, elem):
+            break
+    return bq, bk
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     block_q: Optional[int] = None,
@@ -74,16 +95,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention in model layout. q: (B, T, H, D); k, v: (B, S, KV, D).
 
     Differentiable on both devices through :class:`FlashAttention`: the
-    forward kernel, and the dq and dk/dv kernels for the backward.
-    ``block_q``/``block_k`` of None resolve through the tuned-block registry
-    and default to the kernel's own choice when untuned."""
-    if block_q is None or block_k is None:
-        B, T, H, D = q.shape
-        S, KV = k.shape[1], k.shape[2]
-        tuned = tuned_blocks("flash_attention", (B, T, S, H, KV, D))
-        tq, tk = tuned if tuned else _fa.default_blocks(D)
-        block_q = tq if block_q is None else block_q
-        block_k = tk if block_k is None else block_k
+    forward kernel, and the dq and dk/dv kernels for the backward.  The
+    forward's blocks come from :func:`flash_blocks`; the backward kernels
+    size their own (``bwd_blocks``) and take none from the registry."""
+    shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
+    block_q, block_k = flash_blocks(shape, q.element_size(), block_q, block_k)
     return _fa.FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
 
 

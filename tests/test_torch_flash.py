@@ -113,3 +113,49 @@ def test_tuned_block_registry_resolves_like_the_reference():
     finally:
         ops.clear_tuned_blocks()
     assert ops.tuned_blocks("flash_attention", (2, 512, 512, 32, 32, 80)) is None
+
+
+def test_tuned_tile_for_another_head_dim_resolves_to_one_that_fits():
+    """A (64, 128) winner installed at a D = 32 shape is the registry's
+    nearest entry for gemma-2b's D = 256, where the forward kernel cannot
+    launch it (shared memory): the entry point resolves the default tile,
+    without launching anything, and its plain path takes it."""
+    from repro_torch.kernels import flash_attention as fa
+    shape = (2, 512, 512, 8, 1, 256)
+    try:
+        ops.set_tuned_blocks("flash_attention", (2, 512, 512, 8, 1, 32), (64, 128))
+        assert ops.tuned_blocks("flash_attention", shape) == (64, 128)
+        assert not fa.fits_shared_memory(256, 64, 128)
+        before = dict(LAUNCHES)
+        for elem in (4, 2):
+            bq, bk = ops.flash_blocks(shape, elem)
+            assert fa.fits_shared_memory(256, bq, bk, elem)
+            assert (bq, bk) == fa.default_blocks(256)
+        # where it fits, the winner stands; an explicit block is kept
+        assert ops.flash_blocks((2, 512, 512, 8, 1, 32)) == (64, 128)
+        assert ops.flash_blocks(shape, block_q=32) == (32, fa.default_blocks(256)[1])
+        q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, 24, 24, 2, 1, 256))
+        out = ops.flash_attention(q, k, v, causal=True)
+        assert torch.equal(out, flash_attention_ref(q, k, v, causal=True)[0])
+        assert LAUNCHES == before
+    finally:
+        ops.clear_tuned_blocks()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_an_explicit_tile_that_cannot_launch_is_refused_before_launching(dtype):
+    """(32, 128) at D = 256 needs more shared memory than a block has: the
+    wrapper says how much, on either device, and launches nothing.  64 rows
+    break the wide form's block rule (2 strips) before that."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(6, 1, 16, 16, 2, 1, 256))
+    need = fa.fwd_shared_bytes(256, 32, 128, q.element_size())
+    assert need > fa.MAX_SHARED_BYTES
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match=f"need {need} bytes.*{fa.MAX_SHARED_BYTES}"):
+        flash_attention_fwd(q, k, v, causal=True, block_q=32, block_k=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.flash_attention(q, k, v, causal=True, block_q=32, block_k=128)
+    with pytest.raises(ValueError, match="block_q=64: a multiple of 16 up to 32"):
+        ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=32)
+    assert LAUNCHES == before

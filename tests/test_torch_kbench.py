@@ -101,6 +101,67 @@ def test_a_block_config_k1_refuses_is_an_error():
 
 
 # ---------------------------------------------------------------------------
+# Timing: back-to-back trials on the card, driven here through a stub timer
+# ---------------------------------------------------------------------------
+
+
+class _StubTimer:
+    """Seconds a run of ``reps`` calls would take: a fixed host cost per
+    trial (an event pair and the first call's enqueue) plus a device time per
+    call.  It makes the calls, so they can be counted."""
+
+    def __init__(self, fixed_s, per_call_s):
+        self.fixed_s, self.per_call_s = fixed_s, per_call_s
+
+    def __call__(self, fn, reps):
+        for _ in range(reps):
+            fn()
+        return self.fixed_s + reps * self.per_call_s
+
+
+def test_back_to_back_trials_divide_by_the_calls_they_time():
+    timer = _StubTimer(fixed_s=0.0, per_call_s=0.3e-3)
+    counted = []
+    fn = lambda: counted.append(1)                          # noqa: E731
+    reps = harness.calls_per_trial(fn, timer)
+    assert reps == 4                          # 1, 2: under 1 ms; 4: 1.2 ms
+    assert len(counted) == 1 + 2 + 4
+    samples = harness.trial_seconds(fn, 3, reps, timer)
+    assert samples == [pytest.approx(0.3e-3)] * 3
+    assert len(counted) == 1 + 2 + 4 + 3 * 4
+
+
+def test_back_to_back_trials_leave_a_fixed_host_cost_out_of_the_samples():
+    """A 50 us cost per trial sits inside every single-call sample (60 us for
+    10 us of device time); spread over a 1 ms trial it is under 5 %."""
+    timer = _StubTimer(fixed_s=50e-6, per_call_s=10e-6)
+    assert harness.trial_seconds(lambda: None, 1, 1, timer) == [pytest.approx(60e-6)]
+    reps = harness.calls_per_trial(lambda: None, timer)
+    assert reps == 128 and 50e-6 + reps * 10e-6 >= harness.MIN_TRIAL_S
+    (sample,) = harness.trial_seconds(lambda: None, 1, reps, timer)
+    assert 10e-6 < sample < 10.5e-6
+
+
+def test_calls_per_trial_stops_at_its_cap():
+    assert harness.calls_per_trial(lambda: None, lambda fn, reps: 0.0) == harness.MAX_REPS
+
+
+def test_bench_result_and_table_cell_keep_their_fields():
+    """The timing change moves no field: the table's format stays the
+    reference's."""
+    from dataclasses import fields
+    assert ([f.name for f in fields(harness.BenchResult)]
+            == [f.name for f in fields(jax_harness.BenchResult)]
+            == ["op", "shape", "blocks", "median_s", "trials_s", "flops", "device"])
+    assert ([f.name for f in fields(KernelMeasurement)]
+            == [f.name for f in fields(jax_table.KernelMeasurement)]
+            == ["device", "op", "shape", "median_s", "trials", "flops", "blocks",
+                "collected_at", "host"])
+    res = harness.bench_op("rmsnorm", (8, 16), trials=3, warmup=1, run_device="cpu")
+    assert len(res.trials_s) == 3 and res.median_s == sorted(res.trials_s)[1]
+
+
+# ---------------------------------------------------------------------------
 # Harness on the CPU (plain versions, only when asked)
 # ---------------------------------------------------------------------------
 

@@ -14,7 +14,8 @@ from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.flash_attention import (
     MAX_HEAD_DIM, bwd_blocks, bwd_kernel_shared_bytes, bwd_shared_bytes,
-    flash_attention_bwd, flash_attention_fwd,
+    flash_attention_bwd, flash_attention_fwd, fwd_kernel_shared_bytes,
+    fwd_shared_bytes,
 )
 from repro_torch.kernels.ref import (
     flash_attention_bwd_ref, flash_attention_ref, rmsnorm_ref, ssd_intra_oracle,
@@ -97,9 +98,99 @@ def test_flash_kernel_reads_strided_model_layout(hopper):
 @pytest.mark.cuda_sm90
 def test_flash_kernel_rejects_a_launch_it_cannot_make(hopper):
     q = torch.randn(1, 8, 2, 256, device=hopper)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        # 1024 keys of 256 f32 values per tile: more shared memory than a block has
+    before = LAUNCHES["flash_attention_fwd"]
+    with pytest.raises(ValueError, match="shared memory"):
+        # 1024 keys of 256 f32 values per tile: more shared memory than a
+        # block has, refused before the launch
         flash_attention_fwd(q, q, q, causal=True, block_k=1024)
+    assert LAUNCHES["flash_attention_fwd"] == before
+    # 65536 query tiles: more than the grid's z dimension takes
+    q = torch.zeros(1, 65536 * 16 + 1, 1, 16, device=hopper)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_attention_fwd(q, q, q, causal=True, block_q=16)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("D", [80, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_is_bit_equal_from_launch_to_launch(hopper, dtype, D):
+    """Every product and sum in a fixed order (D = 256: the wide form, whose
+    row max and sums pass through shared memory)."""
+    B, T, S, H, KV = 2, 256, 256, 8, 2
+    q, k, v = (torch.from_numpy(x).to(hopper, getattr(torch, dtype))
+               for x in _qkv(12, B, T, S, H, KV, D))
+    first = flash_attention_fwd(q, k, v, causal=True)
+    second = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_reads_strided_model_layout_on_wide_heads(hopper, dtype):
+    """The wide form (D = 112, GQA) on views of one fused projection, and
+    bf16 rows on odd element strides (plain loads)."""
+    B, T, H, KV, D = 2, 150, 4, 2, 112
+    qkv = torch.randn(B, T, H + 2 * KV, D + (dtype == "bfloat16"), device=hopper)
+    qkv = qkv.to(getattr(torch, dtype))[..., :D]
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ro, rl = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ro.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, rl, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda_sm90
+def test_flash_fwd_tile_sizing_equals_the_kernels_own(hopper):
+    """fwd_shared_bytes, which decides which tiles launch, against the size
+    the kernel launches with, for every head dim, dtype and kbench tile."""
+    for d in range(1, MAX_HEAD_DIM + 1):
+        for elem in (4, 2):
+            for bq in (16, 32, 64):
+                for bk in (32, 64, 128):
+                    assert (fwd_shared_bytes(d, bq, bk, elem)
+                            == fwd_kernel_shared_bytes(d, bq, bk, elem)), (d, elem, bq, bk)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_takes_every_tile_it_fits(hopper, dtype):
+    """Each tile of kbench's grid that fits, on a ragged causal case with
+    GQA and on the wide form."""
+    for B, T, S, H, KV, D in ((1, 200, 200, 4, 2, 64), (1, 130, 130, 2, 1, 256)):
+        q, k, v = (torch.from_numpy(x).to(hopper, getattr(torch, dtype))
+                   for x in _qkv(13, B, T, S, H, KV, D))
+        ro, rl = flash_attention_ref(q, k, v, causal=True)
+        for bq, bk in harness.OPS["flash_attention"].block_grid((B, T, S, H, KV, D)):
+            out, lse = flash_attention_fwd(q, k, v, causal=True, block_q=bq,
+                                           block_k=bk)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), ro.float(), atol=TOL[dtype],
+                                       rtol=TOL[dtype], msg=lambda m: f"{bq, bk}: {m}")
+            torch.testing.assert_close(lse, rl, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda_sm90
+def test_tuned_tile_for_another_head_dim_falls_back_to_the_default(hopper):
+    """A (64, 128) winner installed at a D = 32 shape is the nearest entry
+    for gemma-2b's D = 256, where it needs more shared memory than a block
+    has: ops.flash_attention launches the default tile instead."""
+    B, T, S, H, KV, D = 2, 512, 512, 8, 1, 256
+    q, k, v = (torch.from_numpy(x).to(hopper) for x in _qkv(14, B, T, S, H, KV, D))
+    try:
+        ops.set_tuned_blocks("flash_attention", (2, 512, 512, 8, 1, 32), (64, 128))
+        assert ops.tuned_blocks("flash_attention", (B, T, S, H, KV, D)) == (64, 128)
+        before = LAUNCHES["flash_attention_fwd"]
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention_fwd"] == before + 1
+    finally:
+        ops.clear_tuned_blocks()
+    ro, _ = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out, ro, atol=TOL["float32"], rtol=TOL["float32"])
 
 
 def _grads_close(got, want, dtype):
@@ -455,10 +546,30 @@ def test_rmsnorm_kernel_refuses_what_it_cannot_take(hopper):
 
 
 @pytest.mark.cuda_sm90
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_rows", [32, 64, 128, 256])
+@pytest.mark.parametrize("shape", [(4099, 2560), (200, 128), (37, 4096 + 8),
+                                   (45, 9000), (70, 99)])
+def test_rmsnorm_kernel_every_swept_block_on_ragged_tiles(hopper, shape, block_rows,
+                                                          dtype):
+    """kbench's swept row tiles on row counts none of them divides, in both
+    dtypes: rows held in registers (D = 2560, 128), rows read twice (D = 4104
+    in f32, 9000) and scalar rows (D = 99)."""
+    x, w = _rms_inputs(24, shape, dtype, hopper)
+    y = ops.rmsnorm(x, w, block_rows=block_rows)
+    torch.cuda.synchronize()
+    tol = RMS_WIDE_TOL if dtype == "float32" and shape[-1] > 256 else RMS_TOL[dtype]
+    if dtype == "float32" and shape[-1] <= 256:
+        tol = dict(atol=2e-5, rtol=2e-5)      # tests/test_kbench.py's sweep tolerance
+    torch.testing.assert_close(y.float(), rmsnorm_ref(x, w).float(), **tol)
+
+
+@pytest.mark.cuda_sm90
 def test_kbench_collects_rmsnorm_on_the_card(hopper):
     before = LAUNCHES["rmsnorm"]
     t = harness.collect(["rmsnorm"], trials=3, warmup=2)
-    assert LAUNCHES["rmsnorm"] == before + 5
+    # warmup, the calls that size a trial, then 3 trials of back-to-back calls
+    assert LAUNCHES["rmsnorm"] >= before + 5
     (e,) = t.entries
     assert e.device == f"cuda:{torch.cuda.get_device_name(0)}"
     assert e.median_s > 0 and e.shape == (256, 128) and e.blocks == (128,)
