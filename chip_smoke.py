@@ -8,13 +8,13 @@ each (``{"phase": ...}``):
   device    card name, count and ``nvidia-smi`` name / power limit;
   build     compiles every CUDA source of the port with nvcc (seconds,
             ptxas registers and spills of what this run compiled) and reads
-            each flash kernel's (forward and backward) tensor-core
+            each flash kernel's (forward and backward) and K5's tensor-core
             instructions (HMMA, ``cuobjdump -sass``) and registers, stack and
             local memory (``cuobjdump -res-usage``) from the built library,
             so a cached build is checked too; fails on local memory or stack
-            (spills) in a flash kernel, on one without HMMA, or where the
-            wrapper's size of a forward or backward block differs from the
-            kernels' own;
+            (spills) in one of them, on one without HMMA, or where the
+            wrapper's size of a forward, backward or K5 block differs from
+            the kernels' own;
   kernel    each kernel against its plain PyTorch version on the card, on
             the reference's flash cases plus the shapes of the serving and
             the training path: the forward in float32 (tolerance 2e-5) and
@@ -68,12 +68,15 @@ each (``{"phase": ...}``):
             ``kbench.collect(shapes="default")`` on the card for the three
             ops (each trial a run of calls back to back, at least 1 ms),
             ``collect_autotuned`` + ``install`` (the entry points then
-            resolve to the winners), ``bench_op`` at the main paths'
-            full-width shapes, K4 at (4096, 2560) also timed one call per
-            event pair (the host share of a call), ``ops.flash_attention``
+            resolve to the winners), flash also swept and installed at
+            gpt-2b's prefill shape (D = 80; the harness's sweep is at D = 64),
+            ``bench_op`` at the main paths' full-width shapes, K4 at (4096,
+            2560) also timed one call per event pair (the host share of a
+            call), ``ops.flash_attention``
             at gpt-2b's prefill and gemma-2b's D = 256 with the winners still
-            installed (a winner for another head dim that does not fit gives
-            way to the default tile), the table saved and reloaded, and the
+            installed (gpt-2b's launches the tile swept at D = 80; a winner
+            for another head dim that does not fit gives way to the default
+            tile), the table saved and reloaded, and the
             tuned blocks cleared;
   plan      on the host, from that table: the HAPT planner on an H100 mesh
             plus the paper's A100 and V100 meshes, full gpt-2b and
@@ -88,9 +91,10 @@ each (``{"phase": ...}``):
             (``F.scaled_dot_product_attention`` and its backward,
             ``F.rms_norm``, timed only as yardsticks, never called by the
             port; none exists for K5) and the card's bound (the flash
-            kernels' f32 operations at the 3xTF32 rate they run at, 165
-            TFLOP/s; ``bound_simt_ms`` keeps the CUDA-core rate, 67
-            TFLOP/s), and K2 + K3 together against the library's backward,
+            kernels' and K5's f32 operations at the 3xTF32 rate they run at,
+            165 TFLOP/s, K5's bytes at 3.35 TB/s, which bound it;
+            ``bound_simt_ms`` keeps the CUDA-core rate, 67 TFLOP/s), and K2 +
+            K3 together against the library's backward,
             with the CUDA kernels that one library call runs (one
             ``torch.profiler`` pass).
 
@@ -264,6 +268,23 @@ def check_flash_build(res: dict) -> None:
         raise SystemExit(f"flash kernels: missing {missing}; without HMMA or "
                          f"with local memory (spills) {bad}; block sizes that "
                          f"differ from the kernels' own {sizes[:10]}")
+
+
+def check_ssd_build(res: dict) -> None:
+    """K5's kernel runs HMMA and uses no local memory or stack, and the
+    wrapper's size of a block is the kernel's own at every chunk and state
+    size it takes."""
+    from repro_torch.kernels.ssd_scan import (
+        MAX_CHUNK, MAX_STATE, ssd_kernel_shared_bytes, ssd_shared_bytes,
+    )
+    bad = [(n, r) for n, r in res.items()
+           if not r["hmma"] or r.get("local", 1) or r.get("stack", 1)]
+    sizes = [(q, n) for q in range(1, MAX_CHUNK + 1) for n in range(1, MAX_STATE + 1)
+             if ssd_shared_bytes(q, n) != ssd_kernel_shared_bytes(q, n)]
+    if not res or bad or sizes:
+        raise SystemExit(f"ssd_intra: kernels {list(res)}; without HMMA or with "
+                         f"local memory (spills) {bad}; block sizes that differ "
+                         f"from the kernel's own {sizes[:10]}")
 
 
 def cuda_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
@@ -734,13 +755,15 @@ def ssd_inputs(case, gen, strided=False):
 def ssd_bound(case):
     """Least time for K5's work: x, dt, cum, B, C read once and y written
     once; Q(Q+1)/2 * (2N + 2PH) operations per (b, c) (C B^T once, M x per
-    head) at the f32 peak outside the tensor cores."""
+    head) at the 3xTF32 rate K5 runs its f32 products at (the CUDA-core
+    rate's bound is ``ops / PEAK_FLOPS["float32"]``).  Also returns the
+    operations."""
     B, nc, Q, H, P, N = case[:6]
     nbytes = 4 * B * nc * Q * (2 * H * P + 2 * H + 2 * N)
     ops = B * nc * Q * (Q + 1) // 2 * (2 * N + 2 * P * H)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_3XTF32
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", ops)
 
 
 def check_ssd_cases(gen):
@@ -758,11 +781,13 @@ def check_ssd_cases(gen):
         span = (cum[:, :, 0] - cum[:, :, -1]).max().item()
         finite = bool(torch.isfinite(y).all())
         err = (y - ref).abs().max().item()
+        # the largest error as a share of its element's tolerance
+        share = ((y - ref).abs() / (atol + rtol * ref.abs())).max().item()
         ok = finite and torch.allclose(y, ref, atol=atol, rtol=rtol)
         emit("kernel", kernel="ssd_intra", case=case, dtype="float32",
              strided=case == MAMBA_PREFILL, max_abs_err=err,
-             max_abs_ref=ref.abs().max().item(), max_cum_span=span,
-             finite=finite, atol=atol, rtol=rtol, ok=ok)
+             max_abs_ref=ref.abs().max().item(), share_of_tol=share,
+             max_cum_span=span, finite=finite, atol=atol, rtol=rtol, ok=ok)
         if not ok or (case[6] == "span" and span <= 100):
             failures.append(case)
         errs[case] = err
@@ -961,11 +986,12 @@ def run_timing_ssd(gen):
         plain_a = cuda_ms(lambda: ssd_intra_oracle(*inputs), warmup=1, iters=3)
         kernel_ms = cuda_ms(lambda: ssd_intra(*inputs))
         plain_b = cuda_ms(lambda: ssd_intra_oracle(*inputs), warmup=1, iters=3)
-        bound_ms, bound_by = ssd_bound(case)
+        bound_ms, bound_by, ops = ssd_bound(case)
         row = dict(case=case, ms=kernel_ms, plain_ms=(plain_a + plain_b) / 2,
                    library_ms=None,
                    library_call="none: two masked matmuls with a decay",
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_simt_ms=ops / PEAK_FLOPS["float32"] * 1e3)
         rows[case] = row
         emit("timing", kernel="ssd_intra", dtype="float32", **row,
              plain_ms_first=plain_a, plain_ms_last=plain_b,
@@ -1029,6 +1055,26 @@ def check_rmsnorm_cases(gen):
     return errs
 
 
+def sweep_flash_main_shape(trials: int, warmup: int):
+    """``autotune.sweep`` of ``flash_attention`` at gpt-2b's prefill shape
+    (D = 80, ``KBENCH_FULL``), its winner installed in the tuned-block
+    registry and returned as a table cell with the sweep.  The harness sweeps
+    flash at its D = 64 shape only, and the registry's nearest shape would
+    carry that winner to D = 80, where it can be the slower tile."""
+    from repro_torch.kbench import autotune, harness
+    from repro_torch.kbench.table import LatencyTable
+    shape = KBENCH_FULL["flash_attention"]
+    sw = autotune.sweep("flash_attention", shape, trials=trials, warmup=warmup)
+    cell = LatencyTable()
+    cell.add(harness.measurement(harness.BenchResult(
+        op=sw.op, shape=sw.shape, blocks=sw.best_blocks, median_s=sw.best_s,
+        trials_s=(sw.best_s,) * trials, flops=harness.OPS[sw.op].flops(shape),
+        device=sw.device)))
+    if autotune.install(cell) != 1:
+        raise SystemExit(f"the D = 80 flash winner {sw.best_blocks} was not installed")
+    return cell, sw
+
+
 def run_kbench():
     """kbench on the card: canonical collect, autotune + install, the main
     paths' full-width shapes, and the table's round trip."""
@@ -1057,7 +1103,14 @@ def run_kbench():
     tuned, sweeps = autotune.collect_autotuned(shapes="default", trials=trials,
                                                warmup=warmup)
     n_installed = autotune.install(tuned)
-    resolved = {sw.op: ops.tuned_blocks(sw.op, sw.shape) for sw in sweeps}
+    # and flash at the main paths' D = 80, so that gpt-2b's shape resolves to
+    # a tile swept there, not to the D = 64 winner
+    main_flash, sw80 = sweep_flash_main_shape(trials, warmup)
+    tuned = tuned.merge(main_flash)
+    sweeps.append(sw80)
+    n_installed += 1
+    resolved = [{"op": sw.op, "shape": list(sw.shape),
+                 "blocks": ops.tuned_blocks(sw.op, sw.shape)} for sw in sweeps]
     x, w = rms_inputs(harness.OPS["rmsnorm"].default_shape, "float32",
                       torch.Generator(device="cuda").manual_seed(3))
     before = LAUNCHES["rmsnorm"]
@@ -1151,9 +1204,15 @@ def run_kbench():
     if not all(c["ok"] for c in resolved_calls):
         raise SystemExit(f"ops.flash_attention with the winners installed: "
                          f"{resolved_calls}")
-    want = {sw.op: sw.best_blocks for sw in sweeps if sw.best_blocks}
-    if {op: resolved[op] for op in want} != want or n_installed != len(want):
+    want = [{"op": sw.op, "shape": list(sw.shape), "blocks": sw.best_blocks}
+            for sw in sweeps if sw.best_blocks]
+    if [r for r in resolved if r["blocks"]] != want or n_installed != len(want):
         raise SystemExit(f"installed winners {want} resolve to {resolved}")
+    main_shape = tuple(KBENCH_FULL["flash_attention"])
+    d80 = next(c for c in resolved_calls if tuple(c["shape"]) == main_shape)
+    if tuple(d80["launched_blocks"]) != tuple(sw80.best_blocks):
+        raise SystemExit(f"gpt-2b's D = 80 shape launched {d80['launched_blocks']}, "
+                         f"not the tile swept there {sw80.best_blocks}")
     if tuned_call_launched != 1:
         raise SystemExit("ops.rmsnorm with the winner installed did not launch K4")
     if not round_trip:
@@ -1259,11 +1318,13 @@ def main() -> int:
     logs = build.build_all()
     fwd_res = kernel_resources("flash_attention_fwd.cu")
     bwd_res = kernel_resources("flash_attention_bwd.cu")
+    ssd_res = kernel_resources("ssd_intra.cu")
     emit("build", seconds=time.perf_counter() - t0, sources=list(build.SOURCES),
          ptxas=[ln.strip() for log in logs.values() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln],
-         fwd_kernels=fwd_res, bwd_kernels=bwd_res)
+         fwd_kernels=fwd_res, bwd_kernels=bwd_res, ssd_kernels=ssd_res)
     check_flash_build({**fwd_res, **bwd_res})
+    check_ssd_build(ssd_res)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1327,10 +1388,14 @@ def main() -> int:
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "shape": list(MAMBA_PREFILL[:6]), "dtype": "float32",
          "tol": list(SSD_TOL),
+         "bound_simt_ms": ssd_rows[MAMBA_PREFILL]["bound_simt_ms"],
+         "share_of_bound": (ssd_rows[MAMBA_PREFILL]["bound_ms"]
+                            / ssd_rows[MAMBA_PREFILL]["ms"]),
          "launches_train": ssm_train_launches["ssd_intra"],
          "train_shape": list(MAMBA_TRAIN[:6]),
          "train_ms": ssd_rows[MAMBA_TRAIN]["ms"],
          "train_bound_ms": ssd_rows[MAMBA_TRAIN]["bound_ms"],
+         "train_bound_simt_ms": ssd_rows[MAMBA_TRAIN]["bound_simt_ms"],
          "train_plain_ms": ssd_rows[MAMBA_TRAIN]["plain_ms"],
          "train_max_abs_err": ssd_err[MAMBA_TRAIN]},
         {"name": "rmsnorm", "route": "cuda",

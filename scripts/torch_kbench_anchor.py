@@ -4,11 +4,11 @@ checkout.
 
 Runs kbench on the card as ``chip_smoke.py``'s ``kbench`` phase builds its
 table (``collect(shapes="default")``, ``collect_autotuned`` with its winners
-installed, the main paths' full-width shapes at the blocks the entry points
-resolve to), then ``chip_smoke.run_plan`` on that table: the HAPT planner on
-an H100 mesh in front of the paper's A100 and V100 meshes, gpt-2b and
-mamba2-2.7b, with each mesh's measured MFU and layers per stage on its
-``plan`` lines:
+installed, flash swept and installed at gpt-2b's D = 80 shape, the main
+paths' full-width shapes at the blocks the entry points resolve to), then
+``chip_smoke.run_plan`` on that table: the HAPT planner on an H100 mesh in
+front of the paper's A100 and V100 meshes, gpt-2b and mamba2-2.7b, with
+each mesh's measured MFU and layers per stage on its ``plan`` lines:
 
   python3 scripts/torch_kbench_anchor.py [--root TREE] [--label NAME] [--per-call]
 
@@ -54,6 +54,7 @@ def main() -> int:
     tuned, _ = autotune.collect_autotuned(shapes="default", trials=trials,
                                           warmup=warmup)
     autotune.install(tuned)
+    tuned = tuned.merge(cs.sweep_flash_main_shape(trials, warmup)[0])
     for op, shape in sorted(cs.KBENCH_FULL.items()):
         blocks = (ops.tuned_blocks(op, shape)
                   or harness.OPS[op].default_blocks(shape))

@@ -9,8 +9,12 @@ Prints JSON lines:
   fit      ``fit``'s own history: per-step seconds, loss and grad norm,
            tokens/s over steps 2..N, peak device memory;
   profile  torch.profiler over steps 2..N of that ``fit``: device time by
-           kernel, kernel launches per step (all of them, and the port's
-           own ``LAUNCHES``), and the device's busy share of the wall time;
+           kernel and by class (library GEMMs, the port's kernels, the other
+           kernels: elementwise passes, reductions, copies), and inside the
+           ``ssd_intra_vjp`` ranges (the SSD intra-chunk term's backward, the
+           plain version's VJP), kernel launches per step (all of them, and
+           the port's own ``LAUNCHES``), and the device's busy share of the
+           wall time;
   phases   two more steps of the same model and optimizer, split by CUDA
            syncs into forward (``loss``), backward (``autograd.grad``, the
            remat recompute included) and optimizer (the in-place AdamW
@@ -42,15 +46,67 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from torch_profile_generate import device_time_us, emit  # noqa: E402
 
 
+# torch.profiler records each record_function range on the device too (a
+# user annotation spanning the kernels it launched): not a kernel.
+# ops.SSDIntra.backward opens this one around the VJP of the plain version
+RANGES = ("ssd_intra_vjp",)
+
+
+def device_kernels(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type is not None and "CUDA" in str(e.device_type)
+            and device_time_us(e) > 0 and e.key not in RANGES]
+
+
 def kernel_table(prof, top: int):
-    kernels = [e for e in prof.key_averages()
-               if e.device_type is not None and "CUDA" in str(e.device_type)
-               and device_time_us(e) > 0]
+    kernels = device_kernels(prof)
     rows = sorted(kernels, key=device_time_us, reverse=True)[:top]
     return (sum(device_time_us(e) for e in kernels) / 1e3,
             sum(e.count for e in kernels),
             [{"name": e.key[:90], "count": e.count,
               "device_ms": device_time_us(e) / 1e3} for e in rows])
+
+
+GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma")
+PORT_MARKS = ("flash_fwd_kernel", "flash_bwd_", "ssd_intra_kernel",
+              "rmsnorm_held_kernel", "rmsnorm_two_pass_kernel")
+
+
+def kernel_class(name: str) -> str:
+    """gemm (a library matrix product), port (one of the port's own
+    kernels) or other (elementwise passes, reductions, copies)."""
+    if any(m in name for m in PORT_MARKS):
+        return "port"
+    if any(m in name for m in GEMM_MARKS):
+        return "gemm"
+    return "other"
+
+
+def range_split(prof, name: str, steps: int):
+    """Device ms per step inside the profiler ranges called ``name`` (the
+    kernels their CPU ops launched), by kernel class, and the count of
+    ranges per step."""
+    def kernels(evt):
+        yield from evt.kernels
+        for child in evt.cpu_children:
+            yield from kernels(child)
+    by_class, count = {"gemm": 0.0, "port": 0.0, "other": 0.0}, 0
+    for evt in prof.events():
+        if evt.name == name:
+            count += 1
+            for k in kernels(evt):
+                by_class[kernel_class(k.name)] += k.duration / 1e3
+    return {"device_ms_per_step": sum(by_class.values()) / steps,
+            "by_class_ms_per_step": {k: v / steps for k, v in by_class.items()},
+            "ranges_per_step": count / steps}
+
+
+def class_split(prof, steps: int):
+    """All device ms per step by kernel class."""
+    out = {"gemm": 0.0, "port": 0.0, "other": 0.0}
+    for e in device_kernels(prof):
+        out[kernel_class(e.key)] += device_time_us(e) / 1e3
+    return {k: v / steps for k, v in out.items()}
 
 
 def free_memory() -> None:
@@ -134,6 +190,8 @@ def main() -> int:
          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
          kernel_launches_per_step=launches / (n - 1),
          port_launches_per_step={k: v / (n - 1) for k, v in window["launches"].items()},
+         device_ms_per_step_by_class=class_split(prof, n - 1),
+         ssd_intra_vjp=range_split(prof, RANGES[0], n - 1),
          top=top)
     del prof
 

@@ -1,9 +1,11 @@
 // Helpers shared by the flash attention kernels (flash_attention_fwd.cu and
-// flash_attention_bwd.cu): the TF32 operand bits and their 3xTF32 split,
-// mma.sync.m16n8k8 with its fragments in the permuted orders both kernels
-// use, cp.async staging of model-layout rows into shared rows of stride 4
-// mod 8 words, the masks, and the shared row layout.  Each kernel's Params
-// (any struct with the fields the templates read) is its own.
+// flash_attention_bwd.cu), whose fragments, mma and staging the SSD
+// intra-chunk kernel (ssd_intra.cu) also takes: the TF32 operand bits and
+// their 3xTF32 split, mma.sync.m16n8k8 with its fragments in the permuted
+// orders both flash kernels use, cp.async staging of model-layout rows into
+// shared rows of stride 4 mod 8 words, the masks, and the shared row layout.
+// Each kernel's Params (any struct with the fields the templates read) is its
+// own.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,12 +1,13 @@
 """Build the CUDA sources under ``repro_torch/csrc`` and load them.
 
 Each ``.cu`` file is compiled by ``nvcc`` into its own shared library with a
-plain C interface, loaded with ``ctypes``; the flash attention sources share
-the header ``flash_mma.cuh``.  Libraries go to ``build/repro_torch_kernels/``
-at the repository root, named by a hash of the source, the headers beside
-it and the flags, so a stale library is never loaded.  Nothing is
-built at import time: the first launch builds what it needs, and
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+plain C interface, loaded with ``ctypes``; the flash attention and SSD
+sources share the header ``flash_mma.cuh``.  Libraries go to
+``build/repro_torch_kernels/`` at the repository root, named by a hash of
+the source, the headers beside it and the flags, so a stale library is
+never loaded.  Nothing is built at import time: the first launch builds
+what it needs, and :func:`build_all` starts one ``nvcc`` per source, all at
+once.
 """
 from __future__ import annotations
 

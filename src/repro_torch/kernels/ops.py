@@ -129,7 +129,10 @@ class SSDIntra(torch.autograd.Function):
         need = ctx.needs_input_grad
         inputs = [t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
+        # a profiler range, so that a trace of a training step separates
+        # this VJP from the rest of the block's backward
+        # (scripts/torch_profile_fit.py)
+        with torch.enable_grad(), torch.profiler.record_function("ssd_intra_vjp"):
             y = ssd_intra_oracle(*inputs)
             grads = iter(torch.autograd.grad(
                 y, [t for t, n in zip(inputs, need) if n], g))

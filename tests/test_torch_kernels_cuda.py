@@ -20,7 +20,9 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.ref import (
     flash_attention_bwd_ref, flash_attention_ref, rmsnorm_ref, ssd_intra_oracle,
 )
-from repro_torch.kernels.ssd_scan import ssd_intra
+from repro_torch.kernels.ssd_scan import (
+    MAX_CHUNK, MAX_STATE, ssd_intra, ssd_kernel_shared_bytes, ssd_shared_bytes,
+)
 
 torch.set_num_threads(1)
 
@@ -412,6 +414,63 @@ def test_ssd_kernel_reads_strided_model_layout(hopper):
     y = ssd_intra(xs, dt, cum, bs, cs)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ssd_intra_oracle(x, dt, cum, Bm, Cm), **SSD_TOL)
+
+
+def _fused_xbc(x, Bm, Cm):
+    """x, B and C as the chunked views of one fused xBC tensor."""
+    B, nc, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    xbc = torch.cat([x.reshape(B, nc, Q, H * P), Bm, Cm], dim=-1)
+    return (xbc[..., :H * P].reshape(B, nc, Q, H, P), xbc[..., H * P:H * P + N],
+            xbc[..., H * P + N:])
+
+
+@pytest.mark.cuda_sm90
+def test_ssd_kernel_reads_an_unaligned_fused_layout(hopper):
+    """N = 33 and P = 100 in one fused xBC tensor: rows of x, B and C start
+    off 16-byte boundaries, so the kernel stages them by 4-byte copies."""
+    x, dt, cum, Bm, Cm = (torch.from_numpy(a).to(hopper)
+                          for a in _ssd_inputs(16, 1, 2, 77, 3, 100, 33, "ref"))
+    xs, bs, cs = _fused_xbc(x, Bm, Cm)
+    assert xs.stride(2) % 4 and cs.storage_offset() % 4
+    y = ssd_intra(xs, dt, cum, bs, cs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ssd_intra_oracle(x, dt, cum, Bm, Cm), **SSD_TOL)
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_kernel_at_the_widest_head(hopper, strided):
+    """P = 128 (two passes of 64 columns over the key tiles) at the longest
+    chunk, in a contiguous and in the fused layout."""
+    x, dt, cum, Bm, Cm = (torch.from_numpy(a).to(hopper)
+                          for a in _ssd_inputs(17, 2, 2, 256, 6, 128, 128, "A=-1"))
+    args = (*_fused_xbc(x, Bm, Cm),) if strided else (x, Bm, Cm)
+    y = ssd_intra(args[0], dt, cum, args[1], args[2])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, ssd_intra_oracle(x, dt, cum, Bm, Cm), **SSD_TOL)
+
+
+@pytest.mark.cuda_sm90
+def test_ssd_kernel_is_bit_equal_from_launch_to_launch(hopper):
+    """Every product and sum in a fixed order: no atomics."""
+    x, dt, cum, Bm, Cm = (torch.from_numpy(a).to(hopper)
+                          for a in _ssd_inputs(18, 2, 2, 256, 16, 64, 128, "A=-1"))
+    xs, bs, cs = _fused_xbc(x, Bm, Cm)
+    first = ssd_intra(xs, dt, cum, bs, cs)
+    second = ssd_intra(xs, dt, cum, bs, cs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda_sm90
+def test_ssd_block_sizing_equals_the_kernels_own(hopper):
+    """ssd_shared_bytes against the size the kernel launches with, over the
+    chunk and state sizes it takes."""
+    for q in range(1, MAX_CHUNK + 1):
+        for n in range(1, MAX_STATE + 1):
+            assert ssd_shared_bytes(q, n) == ssd_kernel_shared_bytes(q, n), (q, n)
 
 
 @pytest.mark.cuda_sm90
