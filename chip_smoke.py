@@ -83,6 +83,27 @@ each (``{"phase": ...}``):
             mamba2-2.7b (seq_len 1024, global_batch 64, default
             ``PlannerConfig``), with kbench off, an empty table (which must
             price exactly like off) and the card's table;
+  compile   HARP's own entry point at full width: ``api.plan("gpt-2b",
+            h100_fleet(), HarpConfig(seq_len=1024, global_batch=8, kbench=<the
+            card's table>, obs=ObsConfig(run_log=...)))``, the Plan written
+            as JSON and read back into ``api.compile`` (bit-identical),
+            ``attach_elastic()`` and ``fit`` for 3 steps on the card, launch
+            counts reset just before and read just after; the losses equal
+            the ``train`` phase's (relative 1e-4), the launches too (K4 and
+            K5 0), 3 ``step`` lines in the run log, the drift ledger fed every
+            step after the controller's warm-up, the controller's first
+            decision "seeded from compiled plan"; the plan's est_step_time
+            and split, the measured steps, peak memory, the drift report and
+            the controller's decisions on the line.  The plan prices the
+            fleet's meshes; ``fit`` trains the whole model on the card, so
+            the drift is a record, not a cost-model error;
+  cli       ``repro_torch.api.cli.main`` in process, counts reset just
+            before: ``kbench show`` of the card's table, ``plan`` of gpt-2b on
+            the H100 fleet from that table (the same strategy as the planner
+            priced from the table in memory at the same settings), ``kbench
+            collect --ops rmsnorm`` on the card (K4's launches grow), and
+            ``train --plan <mamba2-2.7b plan> --smoke --steps 2`` on the card
+            (K5 launches);
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
             training shape, K5 at mamba2's prefill and training shapes, K4
@@ -99,7 +120,8 @@ each (``{"phase": ...}``):
             ``torch.profiler`` pass).
 
 Then the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
-model phases assert 0), the ``nvidia-smi`` line, and last
+model phases assert 0; ``launches_compile`` and ``launches_cli`` are the
+two control-plane phases'), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; without a card it exits 2 and prints no result.
 """
@@ -597,7 +619,8 @@ def run_train():
                          f"{plain_loss0}")
     if step_restored != TRAIN_STEPS or not bit_equal:
         raise SystemExit("the step-3 checkpoint did not restore bit-equal")
-    return launches, {"tokens_per_s": tok_s, "peak_mem_gb": peak_gb}
+    return launches, {"tokens_per_s": tok_s, "peak_mem_gb": peak_gb,
+                      "losses": [h["loss"] for h in hist]}
 
 
 def free_memory() -> None:
@@ -1273,6 +1296,195 @@ def run_plan(table, fp):
                              f"{stamp}")
 
 
+def run_compile(table, fp, train_launches, train_summary):
+    """HARP's own entry point at full width: ``api.plan`` of gpt-2b on the
+    H100 fleet priced from the card's kbench table, the Plan through JSON
+    and back into ``api.compile``, ``attach_elastic`` and ``fit`` for 3
+    steps on the card, with the drift ledger and a run-log attached.  The
+    plan prices the fleet's meshes; ``fit`` trains the whole model on the
+    card (as the reference's ``Executable.fit`` does), so the drift is a
+    record, not a cost-model error."""
+    from repro_torch import api
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import ObsConfig, iter_kind, read_runlog
+    from repro_torch.train.trainer import TrainerConfig
+
+    free_memory()
+    B, T = GPT2B_TRAIN[0], GPT2B_TRAIN[1]
+    fleet = h100_fleet()
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_compile_", dir=build_dir)
+    try:
+        run_log = os.path.join(work, "run.jsonl")
+        cfg = api.HarpConfig(
+            seq_len=T, global_batch=B,
+            planner=PlannerConfig(n_microbatches=B),
+            kbench=api.KBenchConfig(table=table.to_dict(),
+                                    device_map={"H100-80G": fp}),
+            trainer=TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                                  ckpt_dir=os.path.join(work, "ckpt")),
+            obs=ObsConfig(run_log=run_log))
+        t0 = time.perf_counter()
+        plan = api.plan("gpt-2b", fleet, cfg)
+        plan_s = time.perf_counter() - t0
+        plan_path = os.path.join(work, "plan.json")
+        with open(plan_path, "w") as f:
+            f.write(plan.to_json())
+        with open(plan_path) as f:
+            text = f.read()
+        exe = api.compile(plan_artifact=api.Plan.from_json(text))
+        round_trip = exe.plan.to_json() == text == plan.to_json()
+        ctrl = exe.attach_elastic()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t1 = time.perf_counter()
+        res = exe.fit(seed=0, log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+        fit_s = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = res["history"]
+        del res
+        free_memory()
+        drift = exe.drift_report()
+        step_lines = list(iter_kind(read_runlog(run_log), "step"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_summary["losses"])]
+    decisions = [d.describe() for d in ctrl.decisions]
+    want_observed = TRAIN_STEPS - ctrl.cfg.telemetry_warmup_steps
+    emit("compile", arch="gpt-2b", fleet=fleet.describe(), batch=B, seq_len=T,
+         plan_s=plan_s, est_step_time=plan.strategy.est_step_time,
+         stages=[{"subcluster": fleet.subclusters[st.cluster_idx].name,
+                  "layers": st.layer_end - st.layer_start, "tp": st.tp, "dp": st.dp}
+                 for st in plan.strategy.stages],
+         plan_json_round_trip=round_trip, fit_s=fit_s,
+         step_times_s=[h["time_s"] for h in hist], losses=losses,
+         train_losses=train_summary["losses"], loss_rel_err=rel, loss_tol=STEP1_TOL,
+         peak_mem_gb=peak_gb, train_peak_mem_gb=train_summary["peak_mem_gb"],
+         launches=launches, launches_expected=train_launches,
+         run_log_steps=len(step_lines), drift=drift.to_dict(),
+         drift_observed=drift.n_observed, drift_observed_expected=want_observed,
+         decisions=decisions)
+    if not round_trip:
+        raise SystemExit("the Plan did not round-trip bit-identically through JSON")
+    if len(hist) != TRAIN_STEPS or max(rel) > STEP1_TOL:
+        raise SystemExit(f"compile -> fit losses {losses} vs the train phase's "
+                         f"{train_summary['losses']}")
+    if launches != train_launches:
+        raise SystemExit(f"compile -> fit launches {launches}, the train "
+                         f"phase's {train_launches}")
+    if len(step_lines) != TRAIN_STEPS:
+        raise SystemExit(f"the run log has {len(step_lines)} step lines")
+    if drift.n_observed != want_observed:
+        raise SystemExit(f"the drift ledger observed {drift.n_observed} steps, "
+                         f"expected {want_observed}")
+    if ctrl.decisions[0].reason != "seeded from compiled plan":
+        raise SystemExit(f"first controller decision: {decisions[0]}")
+    return launches
+
+
+def run_cli(table, fp):
+    """The port's CLI in process (``repro_torch.api.cli.main``): ``kbench
+    show`` of the card's table, ``plan`` from it on the H100 fleet (held to
+    the planner priced from the same table in memory), ``kbench collect``
+    of K4 on the card, and ``train --plan <mamba2-2.7b plan> --smoke`` on
+    the card (K5)."""
+    import contextlib
+    import io
+
+    from repro_torch.api import cluster_to_dict
+    from repro_torch.api.cli import main as cli
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import HAPTPlanner, PlannerConfig
+    from repro_torch.kbench.bridge import KBenchConfig
+    from repro_torch.kbench.table import LatencyTable
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    free_memory()
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=build_dir)
+    seconds, outputs = {}, {}
+
+    def run(name, *argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(list(argv))
+        seconds[name] = time.perf_counter() - t0
+        outputs[name] = buf.getvalue()
+        if rc != 0:
+            raise SystemExit(f"python -m repro_torch {' '.join(argv)}: exit {rc}")
+
+    def strategy(d):
+        d = dict(d, planner_meta={k: v for k, v in d["planner_meta"].items()
+                                  if not k.startswith("time_")})
+        return d
+
+    def path(name):
+        return os.path.join(work, name)
+
+    try:
+        table.save(path("ktable.json"))
+        with open(path("fleet.json"), "w") as f:
+            json.dump(cluster_to_dict(h100_fleet()), f)
+        reset_launches()
+        run("kbench_show", "kbench", "show", path("ktable.json"))
+        plan_args = ["--cluster-file", path("fleet.json"), "--seq-len", "1024",
+                     "--global-batch", "64", "--granularity", "128",
+                     "--microbatches", "64", "--kbench-table", path("ktable.json"),
+                     "--kbench-device-map", f"H100-80G={fp}"]
+        run("plan", "plan", "--arch", "gpt-2b", *plan_args, "--explain-costs",
+            "-o", path("gpt.json"))
+        with open(path("gpt.json")) as f:
+            cli_strategy = strategy(json.load(f)["strategy"])
+        direct = HAPTPlanner(h100_fleet(), PlannerConfig(
+            granularity=128, n_microbatches=64, kbench=KBenchConfig(
+                table=table.to_dict(), device_map={"H100-80G": fp}))).plan(
+            get_config("gpt-2b"), seq_len=1024, global_batch=64)
+        same_plan = cli_strategy == strategy(json.loads(direct.to_json()))
+        k4_before = LAUNCHES["rmsnorm"]
+        run("kbench_collect", "kbench", "collect", "--ops", "rmsnorm",
+            "--trials", "5", "--warmup", "2", "-o", path("k4.json"))
+        k4_grew = LAUNCHES["rmsnorm"] - k4_before
+        k4_cells = LatencyTable.load(path("k4.json")).entries
+        run("plan_mamba", "plan", "--arch", "mamba2-2.7b", *plan_args,
+            "-o", path("mamba.json"))
+        ssd_before = LAUNCHES["ssd_intra"]
+        run("train_smoke", "train", "--plan", path("mamba.json"), "--smoke",
+            "--steps", "2", "--batch", "8", "--ckpt-dir", path("ckpt"))
+        ssd_launched = LAUNCHES["ssd_intra"] - ssd_before
+        launches = dict(LAUNCHES)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("cli", seconds=seconds, kbench_show=outputs["kbench_show"].splitlines()[0],
+         plan_same_strategy_as_planner=same_plan,
+         plan_stages=[{"cluster_idx": st["cluster_idx"],
+                       "layers": st["layer_end"] - st["layer_start"]}
+                      for st in cli_strategy["stages"]],
+         plan_est_step_time=cli_strategy["est_step_time"],
+         explain_costs=[ln for ln in outputs["plan"].splitlines()
+                        if "source=" in ln],
+         kbench_collect=outputs["kbench_collect"].strip(),
+         k4_cells=[{"device": e.device, "shape": list(e.shape),
+                    "median_s": e.median_s} for e in k4_cells],
+         k4_launches_grew=k4_grew,
+         train_smoke=outputs["train_smoke"].strip().splitlines()[-2:],
+         ssd_launches=ssd_launched, launches=launches)
+    if not same_plan:
+        raise SystemExit("the CLI's plan differs from the planner's on the same table")
+    if k4_grew < 5 + 2 or not all(e.device == fp for e in k4_cells):
+        raise SystemExit(f"kbench collect through the CLI: K4 grew by {k4_grew}, "
+                         f"cells {k4_cells}")
+    if ssd_launched <= 0 or "over 2 steps" not in outputs["train_smoke"]:
+        raise SystemExit(f"train --smoke through the CLI launched K5 "
+                         f"{ssd_launched} times: {outputs['train_smoke']}")
+    return launches
+
+
 def run_timing_rmsnorm(gen):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1334,7 +1546,7 @@ def main() -> int:
     rms_err = check_rmsnorm_cases(gen)
     serve_launches = run_main_path()
     run_contract()
-    train_launches, _ = run_train()
+    train_launches, train_summary = run_train()
     run_train_contract()
     free_memory()                                # nothing of gpt-2b stays
     ssm_serve_launches = run_main_ssm()
@@ -1344,6 +1556,8 @@ def main() -> int:
     free_memory()
     table, fp, kbench_launches = run_kbench()
     run_plan(table, fp)
+    compile_launches = run_compile(table, fp, train_launches, train_summary)
+    cli_launches = run_cli(table, fp)
     rows = run_timing(gen)
     ssd_rows = run_timing_ssd(gen)
     rms_rows = run_timing_rmsnorm(gen)
@@ -1363,6 +1577,7 @@ def main() -> int:
               "src/repro/kernels/ops.py:120", serve_launches["flash_attention_fwd"],
               fwd_err, GPT2B_PREFILL, tol=TOL["float32"],
               launches_train=train_launches["flash_attention_fwd"],
+              launches_compile=compile_launches["flash_attention_fwd"],
               train_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["ms"],
               train_bound_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["bound_ms"],
               train_library_ms=rows[("flash_attention_fwd", GPT2B_TRAIN,
@@ -1373,12 +1588,14 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:236",
               train_launches["flash_attention_bwd_dq"],
               bwd_err["flash_attention_bwd_dq"], GPT2B_TRAIN,
-              tol=GRAD_TOL["float32"]),
+              tol=GRAD_TOL["float32"],
+              launches_compile=compile_launches["flash_attention_bwd_dq"]),
         entry("flash_attention_bwd_dkv", bwd_src,
               "src/repro/kernels/flash_attention.py:258",
               train_launches["flash_attention_bwd_dkv"],
               bwd_err["flash_attention_bwd_dkv"], GPT2B_TRAIN,
-              tol=GRAD_TOL["float32"]),
+              tol=GRAD_TOL["float32"],
+              launches_compile=compile_launches["flash_attention_bwd_dkv"]),
         {"name": "ssd_intra", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_intra.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:59",
@@ -1392,6 +1609,7 @@ def main() -> int:
          "share_of_bound": (ssd_rows[MAMBA_PREFILL]["bound_ms"]
                             / ssd_rows[MAMBA_PREFILL]["ms"]),
          "launches_train": ssm_train_launches["ssd_intra"],
+         "launches_cli": cli_launches["ssd_intra"],
          "train_shape": list(MAMBA_TRAIN[:6]),
          "train_ms": ssd_rows[MAMBA_TRAIN]["ms"],
          "train_bound_ms": ssd_rows[MAMBA_TRAIN]["bound_ms"],
@@ -1410,7 +1628,9 @@ def main() -> int:
          "launches_main": {"main": serve_launches["rmsnorm"],
                            "train": train_launches["rmsnorm"],
                            "main_ssm": ssm_serve_launches["rmsnorm"],
-                           "train_ssm": ssm_train_launches["rmsnorm"]},
+                           "train_ssm": ssm_train_launches["rmsnorm"],
+                           "compile": compile_launches["rmsnorm"]},
+         "launches_cli": cli_launches["rmsnorm"],
          "wide_shape": list(RMS_WIDE[1]),
          "wide_ms": rms_rows[RMS_WIDE[1]]["ms"],
          "wide_bound_ms": rms_rows[RMS_WIDE[1]]["bound_ms"],

@@ -8,8 +8,7 @@ reference writes ``opt_state|.step``, ``opt_state|.mu|blocks|w``, ...).
 Trees are nested dicts, lists, tuples and NamedTuples of tensors or numpy
 arrays; ``None`` holds no leaf.  Tensors are copied to host numpy arrays on
 save; ``restore`` returns numpy leaves, as the reference does.  Not here
-yet: ``reshard`` (multi-GPU slice) and the obs counters of a durable save
-(``ckpt.saves``, ``ckpt.bytes_written``: the obs port).
+yet: ``reshard`` (multi-GPU slice).
 
 - ``save``: flatten the pytree to path-keyed arrays, write ``.npz`` to a temp
   file, fsync, atomic rename -> a crash mid-write never corrupts the latest
@@ -155,6 +154,11 @@ def _write_atomic(ckpt_dir: str, step: int, meta: Dict,
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    # observability: every durable save counts its bytes on the default
+    # obs registry (record-only; the write path above is unchanged)
+    from repro_torch.obs.metrics import DEFAULT_REGISTRY
+    DEFAULT_REGISTRY.inc("ckpt.saves")
+    DEFAULT_REGISTRY.inc("ckpt.bytes_written", os.path.getsize(path))
     return path
 
 

@@ -71,7 +71,28 @@ KBENCH_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + KBENCH_SLICE)
+CONTROL_PLANE = [
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+    "repro_torch.obs.sink", "repro_torch.obs.drift",
+    "repro_torch.serving", "repro_torch.serving.workload",
+    "repro_torch.serving.kvplan", "repro_torch.serving.objective",
+    "repro_torch.serving.batching", "repro_torch.serving.placement",
+    "repro_torch.migrate", "repro_torch.migrate.layout",
+    "repro_torch.migrate.differ", "repro_torch.migrate.pricing",
+    "repro_torch.migrate.apply",
+    "repro_torch.runtime", "repro_torch.runtime.events",
+    "repro_torch.runtime.telemetry", "repro_torch.runtime.replay",
+    "repro_torch.runtime.controller",
+    "repro_torch.chaos", "repro_torch.chaos.faults", "repro_torch.chaos.inject",
+    "repro_torch.core.baselines", "repro_torch.api", "repro_torch.api.registry",
+    "repro_torch.api.artifacts", "repro_torch.api.facade",
+    "repro_torch.api.cli",
+]
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + KBENCH_SLICE
+                         + CONTROL_PLANE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
@@ -179,3 +200,42 @@ def test_generate_and_fit_mamba_on_cpu_when_asked(tmp_path):
               device="cpu", log_fn=lambda m: None)
     assert res["final_step"] == 2
     assert all(np.isfinite(h["loss"]) for h in res["history"])
+
+
+def _cli(*args):
+    """``python -m repro_torch`` in a fresh interpreter with ``jax`` and
+    ``repro`` blocked."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"sys.argv = ['repro_torch', *{list(args)!r}]\n"
+            "runpy.run_module('repro_torch', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_cli_help_runs_without_jax_or_reference():
+    res = _cli("--help")
+    assert res.returncode == 0, res.stderr
+    for cmd in ("plan", "simulate", "train", "replay", "trace", "migrate",
+                "kbench", "chaos"):
+        assert cmd in res.stdout
+    assert "dryrun" not in res.stdout
+
+
+def test_cli_rejects_dryrun():
+    """``dryrun`` needs the launcher, which is not ported yet."""
+    res = _cli("dryrun", "--arch", "gpt-2b")
+    assert res.returncode == 2
+    assert "invalid choice: 'dryrun'" in res.stderr
+
+
+def test_executable_has_no_stage_mesh():
+    """Device meshes come with the torch.distributed slice; there is no
+    stand-in that builds something else."""
+    from repro_torch.api import Executable
+    from repro_torch.api import facade
+
+    assert not hasattr(Executable, "stage_mesh")
+    assert not hasattr(facade, "mesh_from_intra_op")
