@@ -59,6 +59,39 @@ each (``{"phase": ...}``):
   train_contract_ssm  at full width, batch 1 x 512: every gradient of
             ``loss`` with K5 against the plain version; ``A_log``,
             ``dt_bias`` and ``in_proj`` gradients finite and non-zero;
+  main_moe  ``generate("granite-moe-1b-a400m", batch=8, prompt_len=512,
+            gen_tokens=32)`` at full width (24 flash launches: one per layer
+            in prefill, at D = 64, GQA 16 / 8; decode attention is plain);
+  contract_moe  at full width, batch 2 x 40, prefill 32, at capacity factor
+            n_experts / top_k (4: C >= the tokens of every call, so nothing
+            drops): prefill then stepwise decode (float32 cache) against the
+            full forward, and the kernels against plain attention in the
+            form that routing near-ties cannot fail at random: (a) each
+            layer's attention sub-block with K1 against plain attention from
+            the same input, at 2e-5; (b) the token-layers whose expert set
+            differs between the two paths, each path run on its own and, per
+            layer, from the same input, with the plain side's top-k margin
+            (k-th minus (k+1)-th router probability); (c) the whole-model
+            logits gated at 2e-3 when no route differs; when some do, every
+            route that differs from the same input, and every one of the
+            first layer where the two runs part, must be a near-tie (margin
+            under 1e-5), and the logits are recorded, not gated; and the
+            MoE block's forward and backward at the training shape under
+            ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+  train_moe ``fit("granite-moe-1b-a400m", HarpConfig(seq_len=1024,
+            global_batch=8, ...))`` for 3 steps at full width, no checkpoint
+            (per step 48 forward launches, the remat recompute included,
+            and 24 of each backward kernel); finite losses, an aux loss
+            above 0, step 1's loss against the plain path's, with (b) / (c)
+            on step 1's batch;
+  train_contract_moe  at full width, batch 1 x 256, the published capacity
+            factor: (a) each layer's attention sub-block VJP (K2 / K3) from
+            the same input and cotangent against plain attention's (the h
+            gradient at atol 5e-5, rtol 1e-3; wq, wk, wv, wo, sums over the
+            tokens, per layer by relative norm at 1e-4); every gradient of ``loss`` with the kernels
+            against plain attention's, (b) / (c) as above; the ``wq``,
+            ``wk``, ``wv``, ``router``, ``w_up``, ``w_gate`` and ``w_down``
+            gradients finite and non-zero;
   kernel    also the RMSNorm kernel (``rmsnorm``, K4) against its plain
             version: the reference's cases (f32 atol 1e-6, bf16 2e-2), its
             swept blocks on 256 and 200 rows (2e-5), D = 100 on one row, and
@@ -106,7 +139,7 @@ each (``{"phase": ...}``):
             (K5 launches);
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
-            training shape, K5 at mamba2's prefill and training shapes, K4
+            training shape, of gpt-2b and, f32, of granite-moe, K5 at mamba2's prefill and training shapes, K4
             at the full-width hidden states) against its plain version, a
             PyTorch call that computes the same
             (``F.scaled_dot_product_attention`` and its backward,
@@ -121,12 +154,16 @@ each (``{"phase": ...}``):
 
 Then the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
 model phases assert 0; ``launches_compile`` and ``launches_cli`` are the
-two control-plane phases'), the ``nvidia-smi`` line, and last
+two control-plane phases', ``launches_moe`` and ``launches_train_moe``
+granite-moe's, with the flash kernels' numbers at its shapes under
+``granite_prefill`` / ``granite_train``), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -217,6 +254,17 @@ KBENCH_FULL = {"rmsnorm": RMS_MAIN,
                "ssd_intra": MAMBA_PREFILL[:6]}
 MAMBA_SERVE = dict(batch=8, prompt_len=512, gen_tokens=32)
 MAMBA_TRAIN_BT = (8, 1024)
+# granite-moe-1b-a400m: 16 query heads on 8 KV heads at D = 64
+GRANITE_PREFILL = (8, 512, 512, 16, 8, 64, True, 0)
+GRANITE_TRAIN = (8, 1024, 1024, 16, 8, 64, True, 0)
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_SERVE = dict(batch=8, prompt_len=512, gen_tokens=32)
+MOE_TRAIN_BT = (8, 1024)
+# a routing near-tie: the k-th and (k+1)-th router probabilities of a token
+# closer than this.  The kernel and plain attention differ by ~1e-7
+# relative, which moves a probability of ~0.04 by ~1e-8, so only such a tie
+# can flip a route between the two paths
+MOE_TIE = 1e-5
 EXTRA_CASES = [
     GPT2B_PREFILL,                         # the serving path's shape
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
@@ -385,8 +433,9 @@ def check_kernel_cases(gen):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import flash_attention_ref
 
-    failures, main_err, worst = [], None, (0.0, None)
-    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN]:
+    failures, errs, worst = [], {}, (0.0, None)
+    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_PREFILL,
+                                             GRANITE_TRAIN]:
         causal, window = case[6], case[7]
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(case, dtype, gen)
@@ -411,14 +460,14 @@ def check_kernel_cases(gen):
                  share_of_tol=share, neg_inf_rows_match=same_inf, tol=tol, ok=ok)
             if not ok:
                 failures.append((case, dtype))
-            if case == GPT2B_PREFILL and dtype == "float32":
-                main_err = max(err_out, err_lse)
+            if dtype == "float32":
+                errs[case] = max(err_out, err_lse)
             if dtype == "float32" and share > worst[0]:
                 worst = (share, case)
             del q, k, v, out, lse, ro, rl
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
-    return main_err, worst
+    return errs, worst
 
 
 def check_bwd_kernel_cases(gen):
@@ -432,7 +481,7 @@ def check_bwd_kernel_cases(gen):
     )
 
     failures, errs = [], {}
-    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN]:
+    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_TRAIN]:
         causal, window = case[6], case[7]
         kw = dict(causal=causal, window=window)
         for dtype in ("float32", "bfloat16"):
@@ -463,8 +512,8 @@ def check_bwd_kernel_cases(gen):
                      atol=atol, rtol=rtol, ok=ok)
                 if not ok:
                     failures.append((kernel, case, dtype))
-                if case == GPT2B_TRAIN and dtype == "float32":
-                    errs[kernel] = max(err.values())
+                if dtype == "float32":
+                    errs[(kernel, case)] = max(err.values())
             del q, k, v, do, out, lse, dq, dk, dv, rdq, rdk, rdv
     if failures:
         raise SystemExit(f"backward kernels disagree with their plain "
@@ -688,24 +737,29 @@ def run_timing(gen):
     )
 
     rows = {}
-    for case, dtype in [(c, d) for c in (GPT2B_PREFILL, GPT2B_TRAIN)
-                        for d in ("float32", "bfloat16")]:
+    runs = [(c, d) for c in (GPT2B_PREFILL, GPT2B_TRAIN)
+            for d in ("float32", "bfloat16")]
+    runs += [(GRANITE_PREFILL, "float32"), (GRANITE_TRAIN, "float32")]
+    for case, dtype in runs:
         kw = dict(causal=case[6], window=case[7])
+        # SDPA takes GQA's shared KV heads as they are (enable_gqa)
+        sdpa = dict(is_causal=kw["causal"], enable_gqa=case[3] != case[4])
         q, k, v = qkv(case, dtype, gen)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         timed = {"flash_attention_fwd": (
             lambda: flash_attention_fwd(q, k, v, **kw),
             lambda: flash_attention_ref(q, k, v, **kw),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=kw["causal"]),
-            "F.scaled_dot_product_attention")}
-        if case == GPT2B_TRAIN:
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa),
+            "F.scaled_dot_product_attention" + (" (enable_gqa)" if sdpa["enable_gqa"]
+                                                else ""))}
+        if case in (GPT2B_TRAIN, GRANITE_TRAIN):
             do = qkv(case, dtype, gen)[0]
             out, lse = flash_attention_fwd(q, k, v, **kw)
             _, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
             # yardstick: SDPA's backward (dq, dk, dv together), its forward
             # outside the timed region
             qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-            ot = F.scaled_dot_product_attention(qg, kg, vg, is_causal=kw["causal"])
+            ot = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
             dot = do.transpose(1, 2).contiguous()
 
             def library_bwd():
@@ -736,7 +790,7 @@ def run_timing(gen):
             emit("timing", kernel=kernel, dtype=dtype, **row,
                  plain_ms_first=plain_a, plain_ms_last=plain_b,
                  share_of_bound=bound_ms / kernel_ms)
-        if case == GPT2B_TRAIN:
+        if case in (GPT2B_TRAIN, GRANITE_TRAIN):
             k2 = rows[("flash_attention_bwd_dq", case, dtype)]
             k3 = rows[("flash_attention_bwd_dkv", case, dtype)]
             emit("timing", kernel="flash_attention_bwd (K2 + K3)", dtype=dtype,
@@ -1022,6 +1076,456 @@ def run_timing_ssd(gen):
         del inputs
         free_memory()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: granite-moe-1b-a400m's main paths through K1 / K2 / K3
+# ---------------------------------------------------------------------------
+
+
+def moe_attention(cfg, p, h, use_kernels):
+    """A block's attention sub-block: the term it adds to h."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import rms_norm
+    return attn.self_attention(
+        p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps), n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, causal=True, use_kernels=use_kernels)
+
+
+def route_record(probs, ids, top_k):
+    """A routing's expert sets (N, k), sorted, and top-k margins (N,): the
+    k-th minus the (k+1)-th router probability of each token."""
+    top = probs.topk(top_k + 1, dim=-1).values
+    return ids.sort(dim=-1).values, top[:, -2] - top[:, -1]
+
+
+def moe_routes(cfg, p, hm):
+    """The MoE block's routing of hm (h after attention), as ``route_record``."""
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.moe import route
+    x = rms_norm(hm, p["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    probs, _, ids = route(p["moe"]["router"], x, cfg.top_k)
+    return route_record(probs, ids, cfg.top_k)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every routing the port's MoE block makes while open (one per layer
+    per call), in call order, as ``route_record``: ``moe.route`` is wrapped
+    in place, so the paths under test run unchanged."""
+    from repro_torch.models import moe
+    calls, real = [], moe.route
+
+    def route(router, x, top_k):
+        probs, gate_vals, ids = real(router, x, top_k)
+        calls.append(route_record(probs, ids, top_k))
+        return probs, gate_vals, ids
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+@torch.no_grad()
+def moe_layer_inputs(cfg, params, tokens):
+    """Each layer's input on the kernel path, the layers run one at a time
+    through the port's ``moe_lm._block_apply``."""
+    from repro_torch.models import moe_lm, transformer
+    from repro_torch.models.common import unstack
+    h = transformer.embed_tokens(cfg, params, tokens)
+    inputs = []
+    for p in unstack(params["blocks"], cfg.n_layers):
+        inputs.append(h)
+        h, _ = moe_lm._block_apply(cfg, p, h, True)
+    return inputs
+
+
+def decode_order(fwd, pre, steps, n_layers, B, T, t0):
+    """The prefill + decode routes per layer (the prefill's rows b * t0 + t,
+    t < t0, then each decode step's rows b), and the forward's routes (rows
+    b * T + t) of the same tokens in that order."""
+    idx = torch.cat([
+        (torch.arange(B)[:, None] * T + torch.arange(t0)).reshape(-1),
+        (torch.arange(T - t0)[:, None] + t0 + torch.arange(B) * T).reshape(-1)])
+    idx = idx.to(fwd[0][0].device)
+    served = []
+    for i in range(n_layers):
+        parts = [pre[i]] + [steps[s * n_layers + i] for s in range(T - t0)]
+        served.append(tuple(torch.cat(x) for x in zip(*parts)))
+    return served, [(sets[idx], m[idx]) for sets, m in fwd]
+
+
+def route_flips(kern, plain):
+    """Token-layers whose expert set differs between two lists of per-layer
+    routes, with the plain side's top-k margin of each; the first layer
+    where one differs and that layer's margins; the count of plain-side
+    near-ties (margin under MOE_TIE), flipped or not."""
+    margins = []
+    for (sets_k, _), (sets_p, m_p) in zip(kern, plain):
+        margins.append(m_p[(sets_k != sets_p).any(dim=-1)].tolist())
+    flat = [m for layer in margins for m in layer]
+    first = next((i for i, m in enumerate(margins) if m), None)
+    return {"n": len(flat), "per_layer": [len(m) for m in margins],
+            "first_layer": first,
+            "first_layer_margins": margins[first] if first is not None else [],
+            "min_margin": min(flat, default=None),
+            "max_margin": max(flat, default=None),
+            "near_ties": sum(int((m < MOE_TIE).sum()) for _, m in plain),
+            "min_margin_any": min(m.min().item() for _, m in plain)}
+
+
+def flips_explained(whole, same_input_margins):
+    """(c): routes that differ are explained when every one that differs
+    from the same input, and every one of the first layer where the two
+    runs part (the later ones follow from it), is a near-tie."""
+    return (all(m < MOE_TIE for m in same_input_margins)
+            and all(m < MOE_TIE for m in whole["first_layer_margins"]))
+
+
+def moe_attention_gate(cfg, params, inputs):
+    """(a) and (b) from the same input: each layer's attention sub-block
+    with K1 against plain attention, from the kernel path's input to that
+    layer, held at the f32 forward tolerance; and the routes that differ
+    between the two from that input, with the plain side's margins."""
+    from repro_torch.models.common import unstack
+    tol = TOL["float32"]
+    worst, bad, margins = 0.0, [], []
+    with torch.no_grad():
+        for i, (p, h) in enumerate(zip(unstack(params["blocks"], cfg.n_layers),
+                                       inputs)):
+            a_k = moe_attention(cfg, p, h, True)
+            a_p = moe_attention(cfg, p, h, False)
+            share = ((a_k - a_p).abs() / (tol + tol * a_p.abs())).max().item()
+            worst = max(worst, share)
+            if not torch.allclose(a_k, a_p, atol=tol, rtol=tol):
+                bad.append(i)
+            (sets_k, _), (sets_p, m_p) = (moe_routes(cfg, p, h + a_k),
+                                          moe_routes(cfg, p, h + a_p))
+            margins += m_p[(sets_k != sets_p).any(dim=-1)].tolist()
+    return {"tol": tol, "worst_share_of_tol": worst, "layers_over_tol": bad,
+            "route_flips": len(margins), "route_flip_margins": margins}
+
+
+def moe_attention_vjp_gate(cfg, params, inputs, gen):
+    """(a) for the backward: each layer's attention sub-block VJP with
+    K2 / K3 against plain attention's, from the same input and cotangent.
+    The gradient of h is held element by element at the f32 gradient
+    tolerance; those of wq, wk, wv and wo, each a sum over the tokens of
+    an input row times a dq / dk / dv / out row, per layer by relative norm
+    at TRAIN_CONTRACT_TOL, with their worst element's share of the f32
+    tolerance recorded."""
+    from repro_torch.models.common import unstack
+    atol, rtol = GRAD_TOL["float32"]
+    names = ("h", "wq", "wk", "wv", "wo")
+    share = dict.fromkeys(names, 0.0)
+    rel = dict.fromkeys(names[1:], 0.0)
+    bad = []
+    for i, (p, h) in enumerate(zip(unstack(params["blocks"], cfg.n_layers), inputs)):
+        cot = torch.randn(h.shape, generator=gen, device=h.device)
+        grads = []
+        for use_kernels in (True, False):
+            hh = h.detach().requires_grad_()
+            w = {k: v.detach().requires_grad_() for k, v in p["attn"].items()}
+            a = moe_attention(cfg, dict(p, attn=w), hh, use_kernels)
+            grads.append(torch.autograd.grad(a, [hh] + [w[n] for n in names[1:]], cot))
+        for name, g_k, g_p in zip(names, *grads):
+            share[name] = max(share[name], ((g_k - g_p).abs()
+                                            / (atol + rtol * g_p.abs())).max().item())
+            if name == "h":
+                ok = torch.allclose(g_k, g_p, atol=atol, rtol=rtol)
+            else:
+                rel[name] = max(rel[name], ((g_k - g_p).norm() / g_p.norm()).item())
+                ok = rel[name] <= TRAIN_CONTRACT_TOL
+            if not ok:
+                bad.append((i, name))
+    return {"atol": atol, "rtol": rtol, "worst_share_of_tol": share,
+            "weights_rel_tol": TRAIN_CONTRACT_TOL, "weights_max_rel_err": rel,
+            "over_tol": bad}
+
+
+def moe_block_host_syncs(cfg, params, gen):
+    """The MoE block, forward and backward at the training shape and
+    ``cfg``'s capacity factor, under ``torch.cuda.set_sync_debug_mode(
+    "error")``: an operation that makes the host wait on the card raises
+    (PyTorch calls the mode a prototype that does not see every such
+    operation).  Returns the error, or None."""
+    from repro_torch.models.common import layer
+    from repro_torch.models.moe import moe_block
+    p = {k: v.detach().requires_grad_() for k, v in layer(params["blocks"], 0)["moe"].items()}
+    h = torch.randn(MOE_TRAIN_BT[0], MOE_TRAIN_BT[1], cfg.d_model, generator=gen,
+                    device="cuda", requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_block(p, h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             activation=cfg.activation,
+                             router_aux_coef=cfg.router_aux_coef)
+        (out.sum() + aux).backward()
+        return None
+    except RuntimeError as e:
+        return str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def run_main_moe():
+    from repro_torch.api import generate
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = generate(MOE_ARCH, seed=0, **MOE_SERVE)
+    launches = dict(LAUNCHES)
+    toks = res["tokens"]
+    emit("main_moe", arch=MOE_ARCH, **MOE_SERVE, launches=launches,
+         tokens_shape=list(toks.shape), prefill_s=res["prefill_s"],
+         decode_s=res["decode_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = {k: 0 for k in launches}
+    want["flash_attention_fwd"] = cfg.n_layers
+    if launches != want:
+        raise SystemExit(f"expected {want} launches in {MOE_ARCH} generate, "
+                         f"got {launches}")
+    shape = (MOE_SERVE["batch"], MOE_SERVE["gen_tokens"])
+    if toks.shape != shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise SystemExit(f"bad tokens: shape {toks.shape}, "
+                         f"range [{toks.min()}, {toks.max()}]")
+    return launches
+
+
+def run_contract_moe():
+    """Prefill plus stepwise decode against the full forward, and the
+    kernels against plain attention through (a)-(c), at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.models.prefill import prefill
+
+    # capacity factor n_experts / top_k: C >= the tokens of every call
+    # (prefill, forward, decode step), so no assignment drops and prefill +
+    # decode route as the full forward does
+    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    model = build_model(cfg)                       # kernels on, cuda
+    gen = generator(model.device, 1)
+    params = model.init(gen)
+    B, T, t0 = 2, 40, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=model.device)
+    with torch.no_grad(), recorded_routes() as routes_k:
+        full, aux = model.forward(params, {"tokens": tokens})
+    with torch.no_grad(), recorded_routes() as routes_p:
+        plain = build_model(cfg, use_kernels=False).forward(
+            params, {"tokens": tokens})[0]
+    finite = bool(torch.isfinite(full).all())
+    kernel_vs_plain = (full - plain).abs().max().item()
+    whole = route_flips(routes_k, routes_p)
+    same = moe_attention_gate(cfg, params, moe_layer_inputs(cfg, params, tokens))
+    with recorded_routes() as routes_pre:
+        last, cache = prefill(cfg, params, {"tokens": tokens[:, :t0]},
+                              cache_len=T, cache_dtype=torch.float32,
+                              use_kernels=True)
+    errs = [(last[:, 0] - full[:, t0 - 1]).abs().max().item()]
+    with recorded_routes() as routes_dec:
+        for t in range(t0, T):
+            lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1], t)
+            errs.append((lg[:, 0] - full[:, t]).abs().max().item())
+    # prefill + decode route B * t0 tokens, then B per step, the forward
+    # B * T: the same tokens, compared like the kernel and plain paths
+    served = route_flips(*decode_order(routes_k, routes_pre, routes_dec,
+                                       cfg.n_layers, B, T, t0))
+    sync_error = moe_block_host_syncs(get_config(MOE_ARCH), params, gen)
+    # (c): a comparison is gated when no route differs between its two sides
+    gated, decode_gated = whole["n"] == 0, served["n"] == 0
+    emit("contract_moe", arch=MOE_ARCH, batch=B, tokens=T, prefill_len=t0,
+         capacity_factor=cfg.capacity_factor, logits_shape=list(full.shape),
+         finite=finite, aux_loss=aux.item(),
+         max_abs_err_decode_vs_forward=max(errs), decode_gated=decode_gated,
+         route_flips_decode_vs_forward=served,
+         max_abs_err_kernel_vs_plain_forward=kernel_vs_plain,
+         kernel_vs_plain_gated=gated, tol=CONTRACT_TOL,
+         attention_same_input=same, route_flips_whole_model=whole,
+         moe_block_host_sync=sync_error,
+         note=None if gated and decode_gated else "routes differ between the "
+         "two sides of a comparison: its logits recorded, not gated")
+    del params, full, plain, cache
+    free_memory()
+    if not finite or (decode_gated and max(errs) > CONTRACT_TOL):
+        raise SystemExit("moe serving contract failed at full width")
+    if sync_error is not None:
+        raise SystemExit(f"the MoE block makes the host wait: {sync_error}")
+    if same["layers_over_tol"] or not flips_explained(whole, same["route_flip_margins"]):
+        raise SystemExit(f"moe attention sub-block: layers over tolerance "
+                         f"{same['layers_over_tol']}; route flips not near-ties "
+                         f"{same['route_flip_margins']}, {whole}")
+    if not flips_explained(served, []):
+        raise SystemExit(f"moe decode routes differ beyond near-ties: {served}")
+    if gated and kernel_vs_plain > CONTRACT_TOL:
+        raise SystemExit(f"moe kernel vs plain forward {kernel_vs_plain}")
+
+
+def run_train_moe():
+    """granite-moe's training main path at full width, through ``api.fit``;
+    no checkpoint is written (``ckpt_every`` above the step count)."""
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = get_config(MOE_ARCH)
+    (B, T), seed = MOE_TRAIN_BT, 0
+    # the plain path's loss of fit's first step (fit draws its params from a
+    # generator seeded by `seed` and trains on make_batch(step 0)), and both
+    # paths' routes on that batch
+    plain = build_model(cfg, use_kernels=False, remat=False)
+    params = plain.init(generator(plain.device, seed))
+    batch0 = batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, B, seed), 0),
+                             plain.device)
+    with torch.no_grad(), recorded_routes() as routes_p:
+        plain_total0, plain_m0 = plain.loss(params, batch0)
+    with torch.no_grad(), recorded_routes() as routes_k:
+        build_model(cfg).forward(params, batch0)
+    plain_total0, plain_aux0 = plain_total0.item(), plain_m0["aux_loss"].item()
+    whole = route_flips(routes_k, routes_p)
+    del params, batch0, plain_m0, routes_k, routes_p
+    free_memory()
+    mem_before_gb = torch.cuda.memory_allocated() / 1e9
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_moe_", dir=build_dir)
+    try:
+        config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=1000, log_every=1,
+            ckpt_dir=ckpt_dir))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fit(MOE_ARCH, config, seed=seed,
+                  log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        written = os.listdir(ckpt_dir)
+        del res["state"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_memory()
+    hist = res["history"]
+    steps = [{k: h[k] for k in ("step", "time_s", "total_loss", "loss",
+                                "aux_loss", "grad_norm", "lr", "accuracy")}
+             for h in hist]
+    step_s = [h["time_s"] for h in hist]
+    tok_s = 2 * B * T / (step_s[1] + step_s[2])
+    want = {k: 0 for k in launches}
+    want["flash_attention_fwd"] = 2 * cfg.n_layers * TRAIN_STEPS
+    want["flash_attention_bwd_dq"] = cfg.n_layers * TRAIN_STEPS
+    want["flash_attention_bwd_dkv"] = cfg.n_layers * TRAIN_STEPS
+    finite = all(math.isfinite(h["total_loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    aux_ok = all(math.isfinite(h["aux_loss"]) and h["aux_loss"] > 0 for h in hist)
+    step1_rel = abs(hist[0]["total_loss"] - plain_total0) / abs(plain_total0)
+    gated = whole["n"] == 0
+    emit("train_moe", arch=MOE_ARCH, batch=B, seq_len=T, steps=steps,
+         launches=launches, launches_expected=want,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         step_s=step_s, tokens_per_s_steps_2_3=tok_s, fit_s=fit_s,
+         peak_mem_gb=peak_gb,
+         mem_allocated_gb={"before_fit": mem_before_gb,
+                           "after_release": torch.cuda.memory_allocated() / 1e9},
+         step1_total_loss=hist[0]["total_loss"], plain_total_loss_step1=plain_total0,
+         step1_aux_loss=hist[0]["aux_loss"], plain_aux_loss_step1=plain_aux0,
+         step1_rel_err=step1_rel, step1_tol=STEP1_TOL, step1_gated=gated,
+         route_flips_step1_batch=whole, checkpoint_files=written, finite=finite,
+         aux_finite_positive=aux_ok,
+         note=None if gated else "routes differ between the kernel and the "
+         "plain path on step 1's batch: its loss recorded, not gated")
+    if len(hist) != TRAIN_STEPS or not finite or not aux_ok:
+        raise SystemExit(f"moe training did not give {TRAIN_STEPS} finite steps "
+                         f"with an aux loss above 0")
+    if launches != want:
+        raise SystemExit(f"moe training launches {launches}, expected {want}")
+    if not flips_explained(whole, []):
+        raise SystemExit(f"moe step 1: routes differ beyond near-ties: {whole}")
+    if gated and step1_rel > STEP1_TOL:
+        raise SystemExit(f"moe step 1 loss {hist[0]['total_loss']} vs the plain "
+                         f"path's {plain_total0}")
+    if written:
+        raise SystemExit(f"moe training wrote a checkpoint: {written}")
+    return launches, {"step_s": step_s, "tokens_per_s": tok_s,
+                      "peak_mem_gb": peak_gb}
+
+
+def run_train_contract_moe():
+    """Every gradient of the loss with the kernels against plain attention,
+    and each layer's attention VJP from the same input, at full width (batch
+    1 x 256, the published capacity factor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device, value_and_grad
+
+    cfg = get_config(MOE_ARCH)
+    kern = build_model(cfg)                               # kernels on, remat
+    plain = build_model(cfg, use_kernels=False)
+    gen = generator(kern.device, 2)
+    params = kern.init(gen)
+    batch = batch_to_device(make_batch(DataConfig(cfg.vocab_size, 256, 1, 2), 0),
+                            kern.device)
+    loss_k, m_k, g_k = value_and_grad(kern.loss, params, batch)
+    loss_p, m_p, g_p = value_and_grad(plain.loss, params, batch)
+    with torch.no_grad(), recorded_routes() as routes_k:
+        kern.forward(params, batch)
+    with torch.no_grad(), recorded_routes() as routes_p:
+        plain.forward(params, batch)
+    whole = route_flips(routes_k, routes_p)
+    inputs = moe_layer_inputs(cfg, params, batch["tokens"])
+    same = moe_attention_gate(cfg, params, inputs)
+    vjp = moe_attention_vjp_gate(cfg, params, inputs, gen)
+    rel, bad = {}, []
+    for (path, a), (_, b) in zip(_leaves(g_k), _leaves(g_p)):
+        name = ".".join(path)
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        if not bool(torch.isfinite(a).all()):
+            bad.append(f"{name} not finite")
+        if (path[-1] in ("wq", "wk", "wv", "router", "w_up", "w_gate", "w_down")
+                and not bool(a.abs().sum() > 0)):
+            bad.append(f"{name} zero")
+    worst = max(rel.values())
+    gated = whole["n"] == 0
+    emit("train_contract_moe", arch=MOE_ARCH, batch=1, seq_len=256,
+         capacity_factor=cfg.capacity_factor,
+         loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+         aux_loss_kernels=m_k["aux_loss"].item(),
+         aux_loss_plain=m_p["aux_loss"].item(),
+         rel_grad_err=rel, max_rel_grad_err=worst, tol=TRAIN_CONTRACT_TOL,
+         grads_gated=gated, bad_grads=bad, attention_same_input=same,
+         attention_vjp_same_input=vjp, route_flips_whole_model=whole,
+         note=None if gated else "routes differ between the kernel and the "
+         "plain path: whole-model gradients recorded, not gated")
+    del g_k, g_p, params, inputs
+    free_memory()
+    if bad or vjp["over_tol"] or same["layers_over_tol"]:
+        raise SystemExit(f"moe training contract: {bad}, attention VJP over "
+                         f"tolerance {vjp['over_tol']}, forward "
+                         f"{same['layers_over_tol']}")
+    if not flips_explained(whole, same["route_flip_margins"]):
+        raise SystemExit(f"moe training contract: routes differ beyond "
+                         f"near-ties: {whole}, {same['route_flip_margins']}")
+    if gated and worst > TRAIN_CONTRACT_TOL:
+        raise SystemExit(f"moe training contract failed: max rel err {worst}")
 
 
 # ---------------------------------------------------------------------------
@@ -1540,7 +2044,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    fwd_err, (fwd_share, fwd_share_case) = check_kernel_cases(gen)
+    fwd_errs, (fwd_share, fwd_share_case) = check_kernel_cases(gen)
     bwd_err = check_bwd_kernel_cases(gen)
     ssd_err = check_ssd_cases(gen)
     rms_err = check_rmsnorm_cases(gen)
@@ -1553,6 +2057,11 @@ def main() -> int:
     run_contract_ssm()
     ssm_train_launches, _ = run_train_ssm()
     run_train_contract_ssm()
+    free_memory()
+    moe_serve_launches = run_main_moe()
+    run_contract_moe()
+    moe_train_launches, _ = run_train_moe()
+    run_train_contract_moe()
     free_memory()
     table, fp, kbench_launches = run_kbench()
     run_plan(table, fp)
@@ -1571,13 +2080,26 @@ def main() -> int:
                 "library_ms": r["library_ms"], "shape": list(case),
                 "dtype": "float32", **extra}
 
+    def granite(kernel, case, err):
+        """A flash kernel at a granite-moe shape: its f32 numbers there."""
+        r = rows[(kernel, case, "float32")]
+        return {"shape": list(case), "max_abs_err": err,
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
     bwd_src = "src/repro_torch/csrc/flash_attention_bwd.cu"
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", "src/repro_torch/csrc/flash_attention_fwd.cu",
               "src/repro/kernels/ops.py:120", serve_launches["flash_attention_fwd"],
-              fwd_err, GPT2B_PREFILL, tol=TOL["float32"],
+              fwd_errs[GPT2B_PREFILL], GPT2B_PREFILL, tol=TOL["float32"],
               launches_train=train_launches["flash_attention_fwd"],
               launches_compile=compile_launches["flash_attention_fwd"],
+              launches_moe=moe_serve_launches["flash_attention_fwd"],
+              launches_train_moe=moe_train_launches["flash_attention_fwd"],
+              granite_prefill=granite("flash_attention_fwd", GRANITE_PREFILL,
+                                      fwd_errs[GRANITE_PREFILL]),
+              granite_train=granite("flash_attention_fwd", GRANITE_TRAIN,
+                                    fwd_errs[GRANITE_TRAIN]),
               train_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["ms"],
               train_bound_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["bound_ms"],
               train_library_ms=rows[("flash_attention_fwd", GPT2B_TRAIN,
@@ -1587,15 +2109,23 @@ def main() -> int:
         entry("flash_attention_bwd_dq", bwd_src,
               "src/repro/kernels/flash_attention.py:236",
               train_launches["flash_attention_bwd_dq"],
-              bwd_err["flash_attention_bwd_dq"], GPT2B_TRAIN,
+              bwd_err[("flash_attention_bwd_dq", GPT2B_TRAIN)], GPT2B_TRAIN,
               tol=GRAD_TOL["float32"],
-              launches_compile=compile_launches["flash_attention_bwd_dq"]),
+              launches_compile=compile_launches["flash_attention_bwd_dq"],
+              launches_train_moe=moe_train_launches["flash_attention_bwd_dq"],
+              granite_train=granite(
+                  "flash_attention_bwd_dq", GRANITE_TRAIN,
+                  bwd_err[("flash_attention_bwd_dq", GRANITE_TRAIN)])),
         entry("flash_attention_bwd_dkv", bwd_src,
               "src/repro/kernels/flash_attention.py:258",
               train_launches["flash_attention_bwd_dkv"],
-              bwd_err["flash_attention_bwd_dkv"], GPT2B_TRAIN,
+              bwd_err[("flash_attention_bwd_dkv", GPT2B_TRAIN)], GPT2B_TRAIN,
               tol=GRAD_TOL["float32"],
-              launches_compile=compile_launches["flash_attention_bwd_dkv"]),
+              launches_compile=compile_launches["flash_attention_bwd_dkv"],
+              launches_train_moe=moe_train_launches["flash_attention_bwd_dkv"],
+              granite_train=granite(
+                  "flash_attention_bwd_dkv", GRANITE_TRAIN,
+                  bwd_err[("flash_attention_bwd_dkv", GRANITE_TRAIN)])),
         {"name": "ssd_intra", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_intra.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:59",
@@ -1629,6 +2159,8 @@ def main() -> int:
                            "train": train_launches["rmsnorm"],
                            "main_ssm": ssm_serve_launches["rmsnorm"],
                            "train_ssm": ssm_train_launches["rmsnorm"],
+                           "main_moe": moe_serve_launches["rmsnorm"],
+                           "train_moe": moe_train_launches["rmsnorm"],
                            "compile": compile_launches["rmsnorm"]},
          "launches_cli": cli_launches["rmsnorm"],
          "wide_shape": list(RMS_WIDE[1]),

@@ -3,7 +3,8 @@
 
 Run from the repository root: ``python3 scripts/torch_profile_fit.py``
 (defaults: full-width gpt-2b, batch 8 x 1024 tokens, 3 steps, the AdamW
-that ``fit`` builds; ``--arch mamba2-2.7b`` profiles the SSM family).
+that ``fit`` builds; ``--arch mamba2-2.7b`` profiles the SSM family,
+``--arch granite-moe-1b-a400m`` the MoE family).
 Prints JSON lines:
 
   fit      ``fit``'s own history: per-step seconds, loss and grad norm,
@@ -117,7 +118,8 @@ def free_memory() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gpt-2b",
-                    choices=["gpt-2b", "mamba2-2.7b"])
+                    choices=["gpt-2b", "mamba2-2.7b",
+                             "granite-moe-1b-a400m"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=3)

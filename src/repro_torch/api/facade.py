@@ -806,8 +806,9 @@ def fit(arch: Union[str, ArchConfig],
     """Config -> model -> AdamW -> the fault-tolerant :class:`Trainer` loop.
 
     Runs on ``cuda`` unless ``device="cpu"``, with the port's kernels on
-    (flash attention for the dense family, the SSD intra-chunk kernel for
-    the SSM family).
+    (flash attention for the dense and MoE families, the SSD intra-chunk
+    kernel for the SSM family).  The MoE family's loss adds the layers'
+    router aux losses (``aux_loss`` in each step's metrics).
     Pass ``train_step`` + ``state`` to run a custom step function; otherwise
     the arch's model is built, its params drawn from a generator seeded by
     ``seed`` (or taken from ``params``, a dict of tensors on the device), and
@@ -854,9 +855,11 @@ def generate(arch: Union[str, ArchConfig], *,
     own init with a generator seeded by ``seed``, unless ``params`` is given
     (a dict of tensors on the device, e.g. from ``convert.params_from_jax``);
     the prompt is drawn from the same generator unless ``prompt`` (B, P)
-    integer tokens are given.  The dense family's KV cache is bfloat16, as in
-    the reference; the SSM family's decode state is float32 and does not
-    grow with the sequence (``pos`` is unused by its decode step).
+    integer tokens are given.  The dense and MoE families' KV cache is
+    bfloat16, (L, B, S, KV, D), as in the reference; the SSM family's decode
+    state is float32 and does not grow with the sequence (``pos`` is unused
+    by its decode step).  MoE routing capacity is taken over the tokens of
+    each call: B * prompt_len in the prefill, B in each decode step.
 
     Returns ``{"tokens": (B, gen_tokens) int array, "prefill_s",
     "decode_s", "decode_tokens_per_s"}``.  The first generated token comes

@@ -1,12 +1,13 @@
 """Prefill: full-sequence forward that RETURNS the serving state.
 
-Counterpart of ``repro/models/prefill.py``, dense and SSM families.
+Counterpart of ``repro/models/prefill.py``, dense, MoE and SSM families.
 ``prefill(cfg, params, batch, cache_len=None)`` -> (last_logits (B,1,V),
 cache), the cache in the family's ``init_cache`` layout, ready for
-``decode_step``.  Each layer's K/V (dense, cast to the cache dtype as it
-lands) or final SSD state and conv tail (SSM, f32) is written straight into
-a preallocated cache, where the reference stacks every layer's output of
-the scan: that saves a full-precision copy of the whole cache.
+``decode_step``.  Each layer's K/V (dense and MoE, cast to the cache dtype
+as it lands) or final SSD state and conv tail (SSM, f32) is written
+straight into a preallocated cache, where the reference stacks every
+layer's output of the scan: that saves a full-precision copy of the whole
+cache.
 """
 from __future__ import annotations
 
@@ -17,18 +18,18 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba_lm, transformer
+from repro_torch.models import mamba_lm, moe_lm, transformer
 from repro_torch.models.common import layer, rms_norm
+from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import ssm_block
 
 Params = Dict[str, Any]
 
 # families whose prefill waits for a later slice, with the ROADMAP item
 NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 7 (MoE)",
-    "hybrid": "ROADMAP.md Queue 1 item 8 (hybrid, VLM, audio)",
-    "vlm": "ROADMAP.md Queue 1 item 8 (hybrid, VLM, audio)",
-    "audio": "ROADMAP.md Queue 1 item 8 (hybrid, VLM, audio)",
+    "hybrid": "ROADMAP.md Queue 1 item 3 (hybrid)",
+    "vlm": "ROADMAP.md Queue 1 item 4 (audio and VLM)",
+    "audio": "ROADMAP.md Queue 1 item 4 (audio and VLM)",
 }
 
 
@@ -86,6 +87,23 @@ def _prefill_dense(cfg, params, batch, cache_len, dtype, use_kernels):
     return transformer.lm_head(cfg, params, h[:, -1:]), cache
 
 
+def _prefill_moe(cfg, params, batch, cache_len, dtype, use_kernels):
+    """Routing capacity is taken over the B * T prompt tokens; the layers'
+    aux losses are not computed."""
+    h = transformer.embed_tokens(cfg, params, batch["tokens"])
+    cache = moe_lm.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    for i in range(cfg.n_layers):
+        p = layer(params["blocks"], i)
+        h, k, v = _attn_collect(cfg, p, h, use_kernels=use_kernels)
+        m, _ = moe_block(p["moe"], rms_norm(h, p["ln2"], cfg.norm_eps),
+                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                         activation=cfg.activation, router_aux_coef=0.0)
+        h = h + m
+        _pad_cache(cache["k"][i], k)
+        _pad_cache(cache["v"][i], v)
+    return transformer.lm_head(cfg, params, h[:, -1:]), cache
+
+
 def _ssm_block_state(cfg, p, h, use_kernels):
     out, st = ssm_block(
         p["ssm"], rms_norm(h, p["ln"], cfg.norm_eps),
@@ -107,7 +125,7 @@ def _prefill_ssm(cfg, params, batch, cache_len, dtype, use_kernels):
     return transformer.lm_head(cfg, params, h[:, -1:]), states
 
 
-_FAMILY = {"dense": _prefill_dense, "ssm": _prefill_ssm}
+_FAMILY = {"dense": _prefill_dense, "moe": _prefill_moe, "ssm": _prefill_ssm}
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,

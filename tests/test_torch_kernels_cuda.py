@@ -44,6 +44,8 @@ KERNEL_CASES = [
     (1, 130, 130, 2, 2, 128, True, 0),
     (8, 512, 512, 32, 32, 80, True, 0),    # gpt-2b prefill
     (8, 1024, 1024, 32, 32, 80, True, 0),  # gpt-2b training
+    (8, 512, 512, 16, 8, 64, True, 0),     # granite-moe prefill: GQA 16 / 8
+    (8, 1024, 1024, 16, 8, 64, True, 0),   # granite-moe training
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
     (2, 300, 300, 4, 4, 112, True, 0),     # zamba2's D = 112
     (1, 100, 40, 2, 1, 80, True, 16),      # fully masked rows (Tq > Tk)

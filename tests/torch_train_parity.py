@@ -57,6 +57,9 @@ METRIC_RTOL = 1e-4
 OPT = dict(lr=LR, warmup_steps=3, total_steps=10)
 # leaves that must get a non-zero gradient: the ones the family's kernel feeds
 LIVE_LEAVES = {"dense": ("blocks.attn.wq", "blocks.attn.wk", "blocks.attn.wv"),
+               "moe": ("blocks.attn.wq", "blocks.attn.wk", "blocks.attn.wv",
+                       "blocks.moe.router", "blocks.moe.w_up",
+                       "blocks.moe.w_gate", "blocks.moe.w_down"),
                "ssm": ("blocks.ssm.in_proj", "blocks.ssm.A_log",
                        "blocks.ssm.dt_bias")}
 
