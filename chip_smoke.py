@@ -22,7 +22,9 @@ each (``{"phase": ...}``):
             dk/dv kernel (dk, dv) in float32 (atol 5e-5, rtol 1e-3) and
             bfloat16 (atol 4e-3, rtol 8e-3); each with its largest error as
             a share of its element's tolerance (the worst f32 one of the
-            forward is on the ``kernels`` line);
+            forward is on the ``kernels`` line); the shapes include
+            zamba2-7b's prefill and training, (8, 512 or 1024, same, 32, 32,
+            112), where the wide kernels (D > 80) run;
   main      ``repro_torch.api.generate("gpt-2b", batch=8, prompt_len=512,
             gen_tokens=32)`` at full width with launch counts reset just
             before and read just after (32 flash launches: one per layer);
@@ -43,7 +45,8 @@ each (``{"phase": ...}``):
             plain version in float32 (atol 1e-4, rtol 1e-3) on the
             reference's property cases, Q = 100, mamba2-2.7b's prefill and
             training shapes (the prefill one in the model's strided layout),
-            zamba2's N = 64, a ragged P > 64, a chunk whose dt span is
+            zamba2's N = 64 (also at zamba2-7b's prefill, strided, and
+            training shapes, 112 heads x 64), a ragged P > 64, a chunk whose dt span is
             above 100 (finite output), Q = 1 and Q = 65;
   main_ssm  ``generate("mamba2-2.7b", batch=8, prompt_len=512,
             gen_tokens=32)`` at full width (64 ``ssd_intra`` launches: one
@@ -92,6 +95,29 @@ each (``{"phase": ...}``):
             against plain attention's, (b) / (c) as above; the ``wq``,
             ``wk``, ``wv``, ``router``, ``w_up``, ``w_gate`` and ``w_down``
             gradients finite and non-zero;
+  main_hybrid  ``generate("zamba2-7b", batch=8, prompt_len=512,
+            gen_tokens=32)`` at full width and depth (81 SSD layers, the
+            shared attention block applied after every 6: 13 flash launches
+            at D = 112, 32 heads MHA, and 81 ``ssd_intra`` launches at 112
+            heads x 64, N = 64, in prefill; decode attention and the SSD
+            recurrence are plain);
+  contract_hybrid  at full width and depth, batch 2 x 40, prefill 32:
+            prefill then stepwise decode (float32 cache) against the full
+            forward, the forward with the kernels against the plain forward
+            (2e-3), and each of the 13 applications' attention sub-block
+            with K1 against plain attention from the same input (2e-5);
+  train_hybrid  ``fit`` of zamba2-7b at 27 layers (4 groups of 6 SSD layers
+            and the shared application, then the 3-layer tail; 81 layers
+            need 113 GB of params, gradients and AdamW moments),
+            ``HarpConfig(seq_len=1024, global_batch=8, ...)``, 3 steps at
+            full width, no checkpoint: per step 8 flash forward launches (4
+            applications, twice with the group remat), 4 of each backward
+            kernel and 54 ``ssd_intra``; finite losses and gradient norms,
+            step 1's loss against the plain path's;
+  train_contract_hybrid  at full width and 27 layers, batch 1 x 512: every
+            gradient of ``loss`` with the kernels against the plain versions
+            (1e-4 relative), every gradient finite, the shared block's, the
+            adapters' and the SSD projections' non-zero;
   kernel    also the RMSNorm kernel (``rmsnorm``, K4) against its plain
             version: the reference's cases (f32 atol 1e-6, bf16 2e-2), its
             swept blocks on 256 and 200 rows (2e-5), D = 100 on one row, and
@@ -139,7 +165,8 @@ each (``{"phase": ...}``):
             (K5 launches);
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
-            training shape, of gpt-2b and, f32, of granite-moe, K5 at mamba2's prefill and training shapes, K4
+            training shape, of gpt-2b and, f32, of granite-moe and zamba2-7b,
+            K5 at mamba2's and zamba2-7b's prefill and training shapes, K4
             at the full-width hidden states) against its plain version, a
             PyTorch call that computes the same
             (``F.scaled_dot_product_attention`` and its backward,
@@ -156,7 +183,10 @@ Then the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
 model phases assert 0; ``launches_compile`` and ``launches_cli`` are the
 two control-plane phases', ``launches_moe`` and ``launches_train_moe``
 granite-moe's, with the flash kernels' numbers at its shapes under
-``granite_prefill`` / ``granite_train``), the ``nvidia-smi`` line, and last
+``granite_prefill`` / ``granite_train``; ``launches_hybrid`` and
+``launches_train_hybrid`` zamba2-7b's, with K1-K3's and K5's numbers at its
+shapes under ``zamba_prefill`` / ``zamba_train``), the ``nvidia-smi`` line,
+and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; without a card it exits 2 and prints no result.
 """
@@ -224,6 +254,9 @@ TRAIN_STEPS = 3
 SSD_TOL = (1e-4, 1e-3)
 MAMBA_PREFILL = (8, 2, 256, 80, 64, 128, "A=-1")
 MAMBA_TRAIN = (8, 4, 256, 80, 64, 128, "A=-1")
+# zamba2-7b's K5 shapes: 112 SSM heads x 64, N = 64, chunk 256
+ZAMBA_SSD_PREFILL = (8, 2, 256, 112, 64, 64, "A=-1")
+ZAMBA_SSD_TRAIN = (8, 4, 256, 112, 64, 64, "A=-1")
 SSD_CASES = [
     (1, 1, 16, 1, 8, 8, "ref"),            # the reference's property space
     (2, 3, 32, 4, 16, 16, "ref"),
@@ -237,7 +270,11 @@ SSD_CASES = [
     (1, 2, 256, 4, 64, 128, "span"),       # dt span above 100 in the chunk
     (1, 3, 1, 2, 8, 8, "ref"),             # a one-token chunk
     (2, 1, 65, 3, 64, 128, "A=-1"),        # one row past the first tile
+    ZAMBA_SSD_PREFILL,
+    ZAMBA_SSD_TRAIN,
 ]
+# K5 cases handed over in the model's strided layout (views of one xBC)
+SSD_STRIDED = (MAMBA_PREFILL, ZAMBA_SSD_PREFILL)
 # K4, RMSNorm.  The reference's tolerances (tests/test_kernels.py: f32 atol
 # 1e-6 with numpy's default rtol 1e-7, bf16 2e-2; tests/test_kbench.py: 2e-5
 # across swept blocks).  At D = 2560 the kernel and the plain version sum
@@ -265,6 +302,20 @@ MOE_TRAIN_BT = (8, 1024)
 # relative, which moves a probability of ~0.04 by ~1e-8, so only such a tie
 # can flip a route between the two paths
 MOE_TIE = 1e-5
+# zamba2-7b: 81 SSD layers and one shared attention block (32 heads x 112,
+# MHA) applied after every 6 of them (13 applications, a 3-layer tail).
+# Serving runs at full depth.  Training at full depth needs 16 B x 7.08 B
+# params = 113 GB of params, gradients and AdamW moments, over the card's
+# 80 GB, so fit runs at 27 layers (4 groups of 6 and the same 3-layer tail)
+# at full width and batch
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_SERVE = dict(batch=8, prompt_len=512, gen_tokens=32)
+HYBRID_TRAIN_BT = (8, 1024)
+HYBRID_TRAIN_LAYERS = 27
+ZAMBA_PREFILL = (8, 512, 512, 32, 32, 112, True, 0)
+ZAMBA_TRAIN = (8, 1024, 1024, 32, 32, 112, True, 0)
+# the flash shapes whose backward kernels are timed
+TRAIN_CASES = (GPT2B_TRAIN, GRANITE_TRAIN, ZAMBA_TRAIN)
 EXTRA_CASES = [
     GPT2B_PREFILL,                         # the serving path's shape
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
@@ -435,7 +486,8 @@ def check_kernel_cases(gen):
 
     failures, errs, worst = [], {}, (0.0, None)
     for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_PREFILL,
-                                             GRANITE_TRAIN]:
+                                             GRANITE_TRAIN, ZAMBA_PREFILL,
+                                             ZAMBA_TRAIN]:
         causal, window = case[6], case[7]
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(case, dtype, gen)
@@ -481,7 +533,8 @@ def check_bwd_kernel_cases(gen):
     )
 
     failures, errs = [], {}
-    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_TRAIN]:
+    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_TRAIN,
+                                             ZAMBA_TRAIN]:
         causal, window = case[6], case[7]
         kw = dict(causal=causal, window=window)
         for dtype in ("float32", "bfloat16"):
@@ -739,7 +792,8 @@ def run_timing(gen):
     rows = {}
     runs = [(c, d) for c in (GPT2B_PREFILL, GPT2B_TRAIN)
             for d in ("float32", "bfloat16")]
-    runs += [(GRANITE_PREFILL, "float32"), (GRANITE_TRAIN, "float32")]
+    runs += [(c, "float32") for c in (GRANITE_PREFILL, GRANITE_TRAIN,
+                                      ZAMBA_PREFILL, ZAMBA_TRAIN)]
     for case, dtype in runs:
         kw = dict(causal=case[6], window=case[7])
         # SDPA takes GQA's shared KV heads as they are (enable_gqa)
@@ -752,7 +806,7 @@ def run_timing(gen):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa),
             "F.scaled_dot_product_attention" + (" (enable_gqa)" if sdpa["enable_gqa"]
                                                 else ""))}
-        if case in (GPT2B_TRAIN, GRANITE_TRAIN):
+        if case in TRAIN_CASES:
             do = qkv(case, dtype, gen)[0]
             out, lse = flash_attention_fwd(q, k, v, **kw)
             _, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
@@ -790,7 +844,7 @@ def run_timing(gen):
             emit("timing", kernel=kernel, dtype=dtype, **row,
                  plain_ms_first=plain_a, plain_ms_last=plain_b,
                  share_of_bound=bound_ms / kernel_ms)
-        if case in (GPT2B_TRAIN, GRANITE_TRAIN):
+        if case in TRAIN_CASES:
             k2 = rows[("flash_attention_bwd_dq", case, dtype)]
             k3 = rows[("flash_attention_bwd_dkv", case, dtype)]
             emit("timing", kernel="flash_attention_bwd (K2 + K3)", dtype=dtype,
@@ -850,7 +904,7 @@ def check_ssd_cases(gen):
     atol, rtol = SSD_TOL
     failures, errs = [], {}
     for case in SSD_CASES:
-        inputs = ssd_inputs(case, gen, strided=case == MAMBA_PREFILL)
+        inputs = ssd_inputs(case, gen, strided=case in SSD_STRIDED)
         y = ssd_intra(*inputs)
         torch.cuda.synchronize()
         ref = ssd_intra_oracle(*inputs)
@@ -862,7 +916,7 @@ def check_ssd_cases(gen):
         share = ((y - ref).abs() / (atol + rtol * ref.abs())).max().item()
         ok = finite and torch.allclose(y, ref, atol=atol, rtol=rtol)
         emit("kernel", kernel="ssd_intra", case=case, dtype="float32",
-             strided=case == MAMBA_PREFILL, max_abs_err=err,
+             strided=case in SSD_STRIDED, max_abs_err=err,
              max_abs_ref=ref.abs().max().item(), share_of_tol=share,
              max_cum_span=span, finite=finite, atol=atol, rtol=rtol, ok=ok)
         if not ok or (case[6] == "span" and span <= 100):
@@ -1058,7 +1112,7 @@ def run_timing_ssd(gen):
     from repro_torch.kernels.ssd_scan import ssd_intra
 
     rows = {}
-    for case in (MAMBA_PREFILL, MAMBA_TRAIN):
+    for case in (MAMBA_PREFILL, MAMBA_TRAIN, ZAMBA_SSD_PREFILL, ZAMBA_SSD_TRAIN):
         inputs = ssd_inputs(case, gen, strided=True)
         plain_a = cuda_ms(lambda: ssd_intra_oracle(*inputs), warmup=1, iters=3)
         kernel_ms = cuda_ms(lambda: ssd_intra(*inputs))
@@ -1526,6 +1580,259 @@ def run_train_contract_moe():
                          f"near-ties: {whole}, {same['route_flip_margins']}")
     if gated and worst > TRAIN_CONTRACT_TOL:
         raise SystemExit(f"moe training contract failed: max rel err {worst}")
+
+
+# ---------------------------------------------------------------------------
+# The hybrid family: zamba2-7b's main paths through K1 / K2 / K3 (D = 112)
+# and K5 (N = 64)
+# ---------------------------------------------------------------------------
+
+
+def hybrid_train_config():
+    """zamba2-7b at the depth ``fit`` runs at on one card (full width)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_TRAIN_LAYERS)
+
+
+def hybrid_launches(cfg, steps: int = 1, train: bool = False) -> dict:
+    """K1 once per shared application and K5 once per SSD layer in a
+    forward; a training step runs each forward twice (group remat) and K2 /
+    K3 once per application."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import hybrid_lm
+    n_apps = hybrid_lm._n_apps(cfg)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want["flash_attention_fwd"] = (2 if train else 1) * n_apps * steps
+    want["ssd_intra"] = (2 if train else 1) * cfg.n_layers * steps
+    if train:
+        want["flash_attention_bwd_dq"] = want["flash_attention_bwd_dkv"] = n_apps * steps
+    return want
+
+
+def run_main_hybrid():
+    from repro_torch.api import generate
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg = get_config(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = generate(HYBRID_ARCH, seed=0, **HYBRID_SERVE)
+    launches = dict(LAUNCHES)
+    toks = res["tokens"]
+    want = hybrid_launches(cfg)
+    emit("main_hybrid", arch=HYBRID_ARCH, **HYBRID_SERVE, n_layers=cfg.n_layers,
+         launches=launches, launches_expected=want,
+         tokens_shape=list(toks.shape), prefill_s=res["prefill_s"],
+         decode_s=res["decode_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches != want:
+        raise SystemExit(f"expected {want} launches in {HYBRID_ARCH} generate, "
+                         f"got {launches}")
+    shape = (HYBRID_SERVE["batch"], HYBRID_SERVE["gen_tokens"])
+    if toks.shape != shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise SystemExit(f"bad tokens: shape {toks.shape}, "
+                         f"range [{toks.min()}, {toks.max()}]")
+    return launches
+
+
+@torch.no_grad()
+def hybrid_attention_gate(cfg, params, tokens):
+    """Each shared application's attention sub-block with K1 against plain
+    attention, from the same input (the kernel path's, the layers run one
+    at a time through the port's ``_block_apply`` / ``_shared_apply``), at
+    the f32 forward tolerance."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import hybrid_lm, mamba_lm, transformer
+    from repro_torch.models.common import linear, rms_norm, unstack
+    tol = TOL["float32"]
+    shared = params["shared"]
+    h = transformer.embed_tokens(cfg, params, tokens)
+    shares, bad = [], []
+    for g, pg in enumerate(unstack(params["groups"], hybrid_lm._n_apps(cfg))):
+        for p in unstack(pg, cfg.shared_attn_every):
+            h = mamba_lm._block_apply(cfg, p, h, True)
+        xn = rms_norm(linear(h, params["adapt_in"][g]), shared["ln1"], cfg.norm_eps)
+        a_k, a_p = (attn.self_attention(
+            shared["attn"], xn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
+            use_kernels=use) for use in (True, False))
+        shares.append(((a_k - a_p).abs() / (tol + tol * a_p.abs())).max().item())
+        if not torch.allclose(a_k, a_p, atol=tol, rtol=tol):
+            bad.append(g)
+        h = hybrid_lm._shared_apply(cfg, shared, params["adapt_in"][g],
+                                    params["adapt_out"][g], h, True)
+    return {"tol": tol, "share_of_tol_per_application": shares,
+            "applications_over_tol": bad}
+
+
+def run_contract_hybrid():
+    """Prefill plus stepwise decode (f32 cache) against the full forward,
+    the forward with the kernels against the plain forward, and each
+    application's attention sub-block from the same input, at full width
+    and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.models.prefill import prefill
+
+    cfg = get_config(HYBRID_ARCH)
+    model = build_model(cfg)                       # kernels on, cuda
+    gen = generator(model.device, 1)
+    params = model.init(gen)
+    B, T, t0 = 2, 40, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=model.device)
+    full, _ = model.forward(params, {"tokens": tokens})
+    plain = build_model(cfg, use_kernels=False).forward(params, {"tokens": tokens})[0]
+    finite = bool(torch.isfinite(full).all())
+    kernel_vs_plain = (full - plain).abs().max().item()
+    same = hybrid_attention_gate(cfg, params, tokens)
+    last, cache = prefill(cfg, params, {"tokens": tokens[:, :t0]}, cache_len=T,
+                          cache_dtype=torch.float32, use_kernels=True)
+    errs = [(last[:, 0] - full[:, t0 - 1]).abs().max().item()]
+    for t in range(t0, T):
+        lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1], t)
+        errs.append((lg[:, 0] - full[:, t]).abs().max().item())
+    emit("contract_hybrid", arch=HYBRID_ARCH, batch=B, tokens=T, prefill_len=t0,
+         n_layers=cfg.n_layers, logits_shape=list(full.shape), finite=finite,
+         cache_shapes={".".join(p): list(v.shape) for p, v in _leaves(cache)},
+         max_abs_logit=full.abs().max().item(),
+         max_abs_err_decode_vs_forward=max(errs),
+         max_abs_err_kernel_vs_plain_forward=kernel_vs_plain, tol=CONTRACT_TOL,
+         attention_same_input=same)
+    del params, full, plain, cache
+    free_memory()
+    if not finite or max(errs) > CONTRACT_TOL or kernel_vs_plain > CONTRACT_TOL:
+        raise SystemExit("hybrid serving contract failed at full width")
+    if same["applications_over_tol"]:
+        raise SystemExit(f"hybrid attention sub-block over tolerance in "
+                         f"applications {same['applications_over_tol']}")
+
+
+def run_train_hybrid():
+    """zamba2-7b's training main path at full width and 27 layers, through
+    ``api.fit``; no checkpoint is written (``ckpt_every`` above the step
+    count)."""
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = hybrid_train_config()
+    (B, T), seed = HYBRID_TRAIN_BT, 0
+    plain = build_model(cfg, use_kernels=False, remat=False)
+    params = plain.init(generator(plain.device, seed))
+    batch0 = batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, B, seed), 0),
+                             plain.device)
+    with torch.no_grad():
+        plain_loss0 = plain.loss(params, batch0)[0].item()
+    del params, batch0
+    free_memory()
+    mem_before_gb = torch.cuda.memory_allocated() / 1e9
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_hybrid_", dir=build_dir)
+    try:
+        config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=1000, log_every=1,
+            ckpt_dir=ckpt_dir))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fit(cfg, config, seed=seed,
+                  log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        written = os.listdir(ckpt_dir)
+        del res["state"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_memory()
+    hist = res["history"]
+    steps = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "lr",
+                                "accuracy")} for h in hist]
+    step_s = [h["time_s"] for h in hist]
+    tok_s = 2 * B * T / (step_s[1] + step_s[2])
+    want = hybrid_launches(cfg, TRAIN_STEPS, train=True)
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    step1_rel = abs(hist[0]["loss"] - plain_loss0) / abs(plain_loss0)
+    emit("train_hybrid", arch=HYBRID_ARCH, batch=B, seq_len=T,
+         n_layers=cfg.n_layers, reduced={"n_layers": f"81 -> {cfg.n_layers}"},
+         steps=steps, launches=launches, launches_expected=want,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         step_s=step_s, tokens_per_s_steps_2_3=tok_s, fit_s=fit_s,
+         peak_mem_gb=peak_gb,
+         mem_allocated_gb={"before_fit": mem_before_gb,
+                           "after_release": torch.cuda.memory_allocated() / 1e9},
+         step1_loss=hist[0]["loss"], plain_loss_step1=plain_loss0,
+         step1_rel_err=step1_rel, step1_tol=STEP1_TOL,
+         checkpoint_files=written, finite=finite)
+    if len(hist) != TRAIN_STEPS or not finite:
+        raise SystemExit(f"hybrid training did not give {TRAIN_STEPS} finite steps")
+    if launches != want:
+        raise SystemExit(f"hybrid training launches {launches}, expected {want}")
+    if step1_rel > STEP1_TOL:
+        raise SystemExit(f"hybrid step 1 loss {hist[0]['loss']} vs the plain "
+                         f"path's {plain_loss0}")
+    if written:
+        raise SystemExit(f"hybrid training wrote a checkpoint: {written}")
+    return launches, {"step_s": step_s, "tokens_per_s": tok_s,
+                      "peak_mem_gb": peak_gb}
+
+
+# gradient leaves of zamba2 that the kernels feed and that must train
+HYBRID_LIVE = ("shared.attn.wq", "shared.attn.wk", "shared.attn.wv",
+               "shared.mlp.w_up", "shared.mlp.w_gate", "shared.mlp.w_down",
+               "adapt_in", "adapt_out", "groups.ssm.in_proj", "groups.ssm.A_log",
+               "tail.ssm.in_proj")
+
+
+def run_train_contract_hybrid():
+    """Every gradient of the loss with the kernels (K1, K2 / K3, K5) against
+    the plain versions, at full width and 27 layers (batch 1 x 512: two
+    chunks of 256); every gradient finite, the shared block's, the
+    adapters' and the SSD projections' non-zero."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device, value_and_grad
+
+    cfg = hybrid_train_config()
+    torch.cuda.reset_peak_memory_stats()
+    kern = build_model(cfg)                               # kernels on, remat
+    plain = build_model(cfg, use_kernels=False)
+    params = kern.init(generator(kern.device, 2))
+    batch = batch_to_device(make_batch(DataConfig(cfg.vocab_size, 512, 1, 2), 0),
+                            kern.device)
+    loss_k, _, g_k = value_and_grad(kern.loss, params, batch)
+    loss_p, _, g_p = value_and_grad(plain.loss, params, batch)
+    rel, bad = {}, []
+    for (path, a), (_, b) in zip(_leaves(g_k), _leaves(g_p)):
+        name = ".".join(path)
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            bad.append(f"{name} not finite")
+        if name in HYBRID_LIVE and not bool(a.abs().sum() > 0):
+            bad.append(f"{name} zero")
+    worst = max(rel.values())
+    emit("train_contract_hybrid", arch=HYBRID_ARCH, batch=1, seq_len=512,
+         n_layers=cfg.n_layers, reduced={"n_layers": f"81 -> {cfg.n_layers}"},
+         loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+         rel_grad_err=rel, max_rel_grad_err=worst, tol=TRAIN_CONTRACT_TOL,
+         bad_grads=bad, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del g_k, g_p, params
+    free_memory()
+    if bad or worst > TRAIN_CONTRACT_TOL:
+        raise SystemExit(f"hybrid training contract failed: max rel err {worst}, "
+                         f"{bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -2063,6 +2370,11 @@ def main() -> int:
     moe_train_launches, _ = run_train_moe()
     run_train_contract_moe()
     free_memory()
+    hybrid_serve_launches = run_main_hybrid()
+    run_contract_hybrid()
+    hybrid_train_launches, _ = run_train_hybrid()
+    run_train_contract_hybrid()
+    free_memory()
     table, fp, kbench_launches = run_kbench()
     run_plan(table, fp)
     compile_launches = run_compile(table, fp, train_launches, train_summary)
@@ -2080,12 +2392,19 @@ def main() -> int:
                 "library_ms": r["library_ms"], "shape": list(case),
                 "dtype": "float32", **extra}
 
-    def granite(kernel, case, err):
-        """A flash kernel at a granite-moe shape: its f32 numbers there."""
+    def at_shape(kernel, case, err):
+        """A flash kernel at another arch's shape: its f32 numbers there."""
         r = rows[(kernel, case, "float32")]
         return {"shape": list(case), "max_abs_err": err,
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")}}
+
+    def ssd_at(case):
+        """K5 at a zamba2-7b shape: its numbers there."""
+        r = ssd_rows[case]
+        return {"shape": list(case[:6]), "max_abs_err": ssd_err[case],
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "bound_simt_ms")}}
 
     bwd_src = "src/repro_torch/csrc/flash_attention_bwd.cu"
     print(json.dumps({"kernels": [
@@ -2096,10 +2415,16 @@ def main() -> int:
               launches_compile=compile_launches["flash_attention_fwd"],
               launches_moe=moe_serve_launches["flash_attention_fwd"],
               launches_train_moe=moe_train_launches["flash_attention_fwd"],
-              granite_prefill=granite("flash_attention_fwd", GRANITE_PREFILL,
-                                      fwd_errs[GRANITE_PREFILL]),
-              granite_train=granite("flash_attention_fwd", GRANITE_TRAIN,
-                                    fwd_errs[GRANITE_TRAIN]),
+              launches_hybrid=hybrid_serve_launches["flash_attention_fwd"],
+              launches_train_hybrid=hybrid_train_launches["flash_attention_fwd"],
+              granite_prefill=at_shape("flash_attention_fwd", GRANITE_PREFILL,
+                                       fwd_errs[GRANITE_PREFILL]),
+              granite_train=at_shape("flash_attention_fwd", GRANITE_TRAIN,
+                                     fwd_errs[GRANITE_TRAIN]),
+              zamba_prefill=at_shape("flash_attention_fwd", ZAMBA_PREFILL,
+                                     fwd_errs[ZAMBA_PREFILL]),
+              zamba_train=at_shape("flash_attention_fwd", ZAMBA_TRAIN,
+                                   fwd_errs[ZAMBA_TRAIN]),
               train_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["ms"],
               train_bound_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["bound_ms"],
               train_library_ms=rows[("flash_attention_fwd", GPT2B_TRAIN,
@@ -2113,9 +2438,13 @@ def main() -> int:
               tol=GRAD_TOL["float32"],
               launches_compile=compile_launches["flash_attention_bwd_dq"],
               launches_train_moe=moe_train_launches["flash_attention_bwd_dq"],
-              granite_train=granite(
+              launches_train_hybrid=hybrid_train_launches["flash_attention_bwd_dq"],
+              granite_train=at_shape(
                   "flash_attention_bwd_dq", GRANITE_TRAIN,
-                  bwd_err[("flash_attention_bwd_dq", GRANITE_TRAIN)])),
+                  bwd_err[("flash_attention_bwd_dq", GRANITE_TRAIN)]),
+              zamba_train=at_shape(
+                  "flash_attention_bwd_dq", ZAMBA_TRAIN,
+                  bwd_err[("flash_attention_bwd_dq", ZAMBA_TRAIN)])),
         entry("flash_attention_bwd_dkv", bwd_src,
               "src/repro/kernels/flash_attention.py:258",
               train_launches["flash_attention_bwd_dkv"],
@@ -2123,9 +2452,13 @@ def main() -> int:
               tol=GRAD_TOL["float32"],
               launches_compile=compile_launches["flash_attention_bwd_dkv"],
               launches_train_moe=moe_train_launches["flash_attention_bwd_dkv"],
-              granite_train=granite(
+              launches_train_hybrid=hybrid_train_launches["flash_attention_bwd_dkv"],
+              granite_train=at_shape(
                   "flash_attention_bwd_dkv", GRANITE_TRAIN,
-                  bwd_err[("flash_attention_bwd_dkv", GRANITE_TRAIN)])),
+                  bwd_err[("flash_attention_bwd_dkv", GRANITE_TRAIN)]),
+              zamba_train=at_shape(
+                  "flash_attention_bwd_dkv", ZAMBA_TRAIN,
+                  bwd_err[("flash_attention_bwd_dkv", ZAMBA_TRAIN)])),
         {"name": "ssd_intra", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_intra.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:59",
@@ -2145,7 +2478,11 @@ def main() -> int:
          "train_bound_ms": ssd_rows[MAMBA_TRAIN]["bound_ms"],
          "train_bound_simt_ms": ssd_rows[MAMBA_TRAIN]["bound_simt_ms"],
          "train_plain_ms": ssd_rows[MAMBA_TRAIN]["plain_ms"],
-         "train_max_abs_err": ssd_err[MAMBA_TRAIN]},
+         "train_max_abs_err": ssd_err[MAMBA_TRAIN],
+         "launches_hybrid": hybrid_serve_launches["ssd_intra"],
+         "launches_train_hybrid": hybrid_train_launches["ssd_intra"],
+         "zamba_prefill": ssd_at(ZAMBA_SSD_PREFILL),
+         "zamba_train": ssd_at(ZAMBA_SSD_TRAIN)},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:32",
@@ -2161,6 +2498,8 @@ def main() -> int:
                            "train_ssm": ssm_train_launches["rmsnorm"],
                            "main_moe": moe_serve_launches["rmsnorm"],
                            "train_moe": moe_train_launches["rmsnorm"],
+                           "main_hybrid": hybrid_serve_launches["rmsnorm"],
+                           "train_hybrid": hybrid_train_launches["rmsnorm"],
                            "compile": compile_launches["rmsnorm"]},
          "launches_cli": cli_launches["rmsnorm"],
          "wide_shape": list(RMS_WIDE[1]),

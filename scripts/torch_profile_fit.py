@@ -4,7 +4,8 @@
 Run from the repository root: ``python3 scripts/torch_profile_fit.py``
 (defaults: full-width gpt-2b, batch 8 x 1024 tokens, 3 steps, the AdamW
 that ``fit`` builds; ``--arch mamba2-2.7b`` profiles the SSM family,
-``--arch granite-moe-1b-a400m`` the MoE family).
+``--arch granite-moe-1b-a400m`` the MoE family, ``--arch zamba2-7b
+--n-layers 27`` the hybrid family at the depth that fits one 80 GB card).
 Prints JSON lines:
 
   fit      ``fit``'s own history: per-step seconds, loss and grad norm,
@@ -22,7 +23,11 @@ Prints JSON lines:
            update): seconds and peak device memory of each;
   plain    ``--plain-steps`` steps from the same init and batches with
            the kernels' plain versions (``use_kernels=False``): per-step
-           losses beside the kernel path's.
+           losses beside the kernel path's.  zamba2-7b at 27 layers needs
+           ``--plain-steps 0`` on an 80 GB card: the plain attention's
+           (B, H, T, T) tensors in the backward do not fit beside its 42 GB
+           of training state (``chip_smoke.py``'s ``train_hybrid`` holds
+           step 1's loss against the plain path's forward instead).
 
 The Chrome trace of the profiled steps goes to ``--trace-dir`` (default
 ``build/traces``).  Numbers are of the card named in the ``device`` line;
@@ -31,6 +36,7 @@ nothing runs without a card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import os
 import shutil
@@ -119,7 +125,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gpt-2b",
                     choices=["gpt-2b", "mamba2-2.7b",
-                             "granite-moe-1b-a400m"])
+                             "granite-moe-1b-a400m", "zamba2-7b"])
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the arch's depth to this many layers (width kept)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=3)
@@ -154,6 +162,8 @@ def main() -> int:
     emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
     cfg = get_config(args.arch)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     B, T, n = args.batch, args.seq_len, args.steps
     ckpt_dir = tempfile.mkdtemp(prefix="profile_fit_", dir=os.path.join(ROOT, "build"))
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -175,12 +185,12 @@ def main() -> int:
         total_steps=n, ckpt_every=n + 1, log_every=1, ckpt_dir=ckpt_dir))
     torch.cuda.reset_peak_memory_stats()
     try:
-        res = fit(args.arch, config, seed=args.seed, on_step_time=on_step_time,
+        res = fit(cfg, config, seed=args.seed, on_step_time=on_step_time,
                   log_fn=lambda m: print(m, file=sys.stderr, flush=True))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     hist = res["history"]
-    emit("fit", arch=args.arch, batch=B, seq_len=T, steps=[
+    emit("fit", arch=args.arch, n_layers=cfg.n_layers, batch=B, seq_len=T, steps=[
         {k: h[k] for k in ("step", "time_s", "loss", "grad_norm")} for h in hist],
         tokens_per_s_steps_2_on=B * T * (n - 1) / sum(h["time_s"] for h in hist[1:]),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)

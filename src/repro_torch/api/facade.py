@@ -807,7 +807,8 @@ def fit(arch: Union[str, ArchConfig],
 
     Runs on ``cuda`` unless ``device="cpu"``, with the port's kernels on
     (flash attention for the dense and MoE families, the SSD intra-chunk
-    kernel for the SSM family).  The MoE family's loss adds the layers'
+    kernel for the SSM family, both for the hybrid family: its SSD layers
+    and its shared attention block).  The MoE family's loss adds the layers'
     router aux losses (``aux_loss`` in each step's metrics).
     Pass ``train_step`` + ``state`` to run a custom step function; otherwise
     the arch's model is built, its params drawn from a generator seeded by
@@ -858,7 +859,9 @@ def generate(arch: Union[str, ArchConfig], *,
     integer tokens are given.  The dense and MoE families' KV cache is
     bfloat16, (L, B, S, KV, D), as in the reference; the SSM family's decode
     state is float32 and does not grow with the sequence (``pos`` is unused
-    by its decode step).  MoE routing capacity is taken over the tokens of
+    by its decode step); the hybrid family's cache holds both: float32 SSD
+    states per SSD layer beside a bfloat16 KV cache per application of its
+    shared attention block, (n_apps, B, S, KV, D).  MoE routing capacity is taken over the tokens of
     each call: B * prompt_len in the prefill, B in each decode step.
 
     Returns ``{"tokens": (B, gen_tokens) int array, "prefill_s",

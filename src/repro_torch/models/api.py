@@ -1,4 +1,4 @@
-"""Unified model API, dense, MoE and SSM families.
+"""Unified model API, dense, MoE, SSM and hybrid families.
 
 Counterpart of ``repro/models/api.py``: ``build_model(cfg)`` returns a
 :class:`Model` of plain functions ``init / forward / loss / init_cache /
@@ -13,11 +13,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import mamba_lm, moe_lm, transformer
+from repro_torch.models import hybrid_lm, mamba_lm, moe_lm, transformer
 from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.models.prefill import check_family
 
-_FAMILY = {"dense": transformer, "moe": moe_lm, "ssm": mamba_lm}
+_FAMILY = {"dense": transformer, "moe": moe_lm, "ssm": mamba_lm,
+           "hybrid": hybrid_lm}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,7 @@ def shard_act(x: torch.Tensor, names: Sequence[Optional[str]]) -> torch.Tensor:
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)     # in place: no second f32 copy
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,

@@ -1,10 +1,11 @@
 """Prefill: full-sequence forward that RETURNS the serving state.
 
-Counterpart of ``repro/models/prefill.py``, dense, MoE and SSM families.
-``prefill(cfg, params, batch, cache_len=None)`` -> (last_logits (B,1,V),
-cache), the cache in the family's ``init_cache`` layout, ready for
-``decode_step``.  Each layer's K/V (dense and MoE, cast to the cache dtype
-as it lands) or final SSD state and conv tail (SSM, f32) is written
+Counterpart of ``repro/models/prefill.py``, dense, MoE, SSM and hybrid
+families.  ``prefill(cfg, params, batch, cache_len=None)`` ->
+(last_logits (B,1,V), cache), the cache in the family's ``init_cache``
+layout, ready for ``decode_step``.  Each layer's K/V (dense, MoE and the
+hybrid's shared block, cast to the cache dtype as it lands) or final SSD
+state and conv tail (SSM and the hybrid's SSD layers, f32) is written
 straight into a preallocated cache, where the reference stacks every
 layer's output of the scan: that saves a full-precision copy of the whole
 cache.
@@ -18,7 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba_lm, moe_lm, transformer
+from repro_torch.models import hybrid_lm, mamba_lm, moe_lm, transformer
 from repro_torch.models.common import layer, rms_norm
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import ssm_block
@@ -27,7 +28,6 @@ Params = Dict[str, Any]
 
 # families whose prefill waits for a later slice, with the ROADMAP item
 NOT_PORTED = {
-    "hybrid": "ROADMAP.md Queue 1 item 3 (hybrid)",
     "vlm": "ROADMAP.md Queue 1 item 4 (audio and VLM)",
     "audio": "ROADMAP.md Queue 1 item 4 (audio and VLM)",
 }
@@ -125,7 +125,34 @@ def _prefill_ssm(cfg, params, batch, cache_len, dtype, use_kernels):
     return transformer.lm_head(cfg, params, h[:, -1:]), states
 
 
-_FAMILY = {"dense": _prefill_dense, "moe": _prefill_moe, "ssm": _prefill_ssm}
+def _write_state(dst: Dict[str, torch.Tensor], st: Dict[str, torch.Tensor]) -> None:
+    for k, v in st.items():
+        dst[k].copy_(v)
+
+
+def _prefill_hybrid(cfg, params, batch, cache_len, dtype, use_kernels):
+    """SSD states f32 (``ssm_groups`` (n_apps, k, B, ...), ``ssm_tail``);
+    each shared application's K/V in the cache dtype (n_apps, B, S, KV, D)."""
+    h = transformer.embed_tokens(cfg, params, batch["tokens"])
+    cache = hybrid_lm.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    for g in range(hybrid_lm._n_apps(cfg)):
+        pg, st_g = layer(params["groups"], g), layer(cache["ssm_groups"], g)
+        for j in range(cfg.shared_attn_every):
+            h, st = _ssm_block_state(cfg, layer(pg, j), h, use_kernels)
+            _write_state(layer(st_g, j), st)
+        h, (k, v) = hybrid_lm._shared_apply(
+            cfg, params["shared"], params["adapt_in"][g], params["adapt_out"][g],
+            h, use_kernels, return_kv=True)
+        _pad_cache(cache["k"][g], k)
+        _pad_cache(cache["v"][g], v)
+    for i in range(hybrid_lm._n_tail(cfg)):
+        h, st = _ssm_block_state(cfg, layer(params["tail"], i), h, use_kernels)
+        _write_state(layer(cache["ssm_tail"], i), st)
+    return transformer.lm_head(cfg, params, h[:, -1:]), cache
+
+
+_FAMILY = {"dense": _prefill_dense, "moe": _prefill_moe, "ssm": _prefill_ssm,
+           "hybrid": _prefill_hybrid}
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,

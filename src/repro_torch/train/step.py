@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/train/step.py:make_train_step`` (single pod).  The
 multi-pod ``make_pipeline_train_step`` comes with the multi-GPU slice
-(ROADMAP.md, Queue 1 item 11).
+(ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -36,12 +36,17 @@ def value_and_grad(loss_fn, params, batch) -> Tuple[torch.Tensor, Dict, Any]:
     -> (loss, metrics, grads), grads in the tree's structure.  The params'
     own ``requires_grad`` flags are left alone (gradients flow to detached
     aliases of the same storage).  A leaf the loss does not reach raises,
-    so a kernel output cut off from autograd cannot train on zero grads."""
+    so a kernel output cut off from autograd cannot train on zero grads;
+    only an empty leaf (a stack of no layers, e.g. the hybrid's tail when
+    n_layers is a multiple of ``shared_attn_every``) gets its empty
+    gradient."""
     alias = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss, metrics = loss_fn(alias, batch)
-        leaves = tree_leaves(alias)
-        grads = torch.autograd.grad(loss, leaves)
+        leaves = [p for p in tree_leaves(alias) if p.numel()]
+        grads = iter(torch.autograd.grad(loss, leaves))
+    grads = [next(grads) if p.numel() else torch.zeros_like(p)
+             for p in tree_leaves(alias)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, grads)
 

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the reference package,
-its entry points default to CUDA and raise without a card, and the families
-it has not ported yet (hybrid, VLM, audio) say where they come."""
+its entry points default to CUDA and raise without a card, each ported
+family (dense, SSM, MoE, hybrid) serves and trains on the CPU when asked,
+and the families it has not ported yet (VLM, audio) say where they come."""
 import os
 import subprocess
 import sys
@@ -46,6 +47,7 @@ SSM_SLICE = ["repro_torch.models.ssm", "repro_torch.models.mamba_lm",
              "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ops"]
 MOE_SLICE = ["repro_torch.models.moe", "repro_torch.models.moe_lm",
              "repro_torch.models.prefill"]
+HYBRID_SLICE = ["repro_torch.models.hybrid_lm"]
 
 _IMPORT_ONE = """
 import importlib, sys
@@ -94,7 +96,7 @@ CONTROL_PLANE = [
 
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + MOE_SLICE
-                         + KBENCH_SLICE + CONTROL_PLANE)
+                         + HYBRID_SLICE + KBENCH_SLICE + CONTROL_PLANE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
@@ -176,8 +178,7 @@ def test_generate_takes_injected_params_and_prompt():
     assert (a["tokens"] == b["tokens"]).all()   # greedy: the seed is unused
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "llama-3.2-vision-90b",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-medium"])
 def test_unported_families_name_their_roadmap_item(arch):
     from repro_torch.api import generate
 
@@ -224,6 +225,32 @@ def test_generate_and_fit_granite_moe_on_cpu_when_asked(tmp_path):
     assert len(res["history"]) == 2
     assert all(np.isfinite(h["loss"]) for h in res["history"])
     assert all(h["aux_loss"] > 0 for h in res["history"])
+
+
+def test_generate_and_fit_zamba2_on_cpu_when_asked(tmp_path):
+    """The hybrid family serves and trains through the same entry points,
+    with and without a tail of SSD layers after the last shared block."""
+    import dataclasses
+    from repro_torch.api import HarpConfig, fit, generate
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import TrainerConfig
+
+    out = generate("zamba2-7b", batch=2, prompt_len=40, gen_tokens=4,
+                   reduced=True, device="cpu")
+    assert out["tokens"].shape == (2, 4)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 512)).all()
+    for n_layers in (4, 5):             # 2 applications; tail 0, then 1
+        cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                                  n_layers=n_layers)
+        res = fit(cfg, HarpConfig(seq_len=48, global_batch=2,
+                                  trainer=TrainerConfig(
+                                      total_steps=2, ckpt_every=1000, log_every=1,
+                                      ckpt_dir=str(tmp_path / str(n_layers)))),
+                  device="cpu", log_fn=lambda m: None)
+        assert res["final_step"] == 2
+        assert len(res["history"]) == 2
+        assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                   for h in res["history"])
 
 
 def _cli(*args):

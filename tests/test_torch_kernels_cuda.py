@@ -49,6 +49,8 @@ KERNEL_CASES = [
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
     (2, 300, 300, 4, 4, 112, True, 0),     # zamba2's D = 112
     (1, 100, 40, 2, 1, 80, True, 16),      # fully masked rows (Tq > Tk)
+    (8, 512, 512, 32, 32, 112, True, 0),   # zamba2-7b prefill: the wide kernels
+    (8, 1024, 1024, 32, 32, 112, True, 0), # zamba2-7b training
 ]
 
 
@@ -374,6 +376,8 @@ SSD_CASES = [
     (1, 2, 77, 3, 100, 33, "ref"),         # ragged P > 64 and N
     (1, 3, 1, 2, 8, 8, "ref"),             # a one-token chunk
     (2, 1, 65, 3, 64, 128, "A=-1"),        # one row past the first tile
+    (8, 2, 256, 112, 64, 64, "A=-1"),      # zamba2-7b prefill, 8 x 512
+    (8, 4, 256, 112, 64, 64, "A=-1"),      # zamba2-7b training, 8 x 1024
 ]
 
 

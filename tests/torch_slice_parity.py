@@ -9,10 +9,15 @@ tokens) is longer than the reduced sliding window (64), so gemma3's
 ring-buffer prefill and windowed decode slots are exercised, and is not a
 multiple of the reduced SSM chunk (32), so the SSD padding is.
 
-The serving state is a KV cache (dense) or ``{"s", "conv"}`` (SSM); the SSM
+The serving state is a KV cache (dense), ``{"s", "conv"}`` (SSM) or both
+(hybrid: ``ssm_groups`` / ``ssm_tail`` dicts beside the shared block's
+``k`` / ``v``), compared leaf by leaf under its path (``flat``).  The SSM
 state is f32 whatever the cache dtype, on both sides, so the SSM runs only
-the f32 decode (``CACHE_DTYPES``).
+the f32 decode (``CACHE_DTYPES``); the hybrid's bf16 decode casts only its
+K/V.  ``n_layers`` replaces the reduced depth (the hybrid's 5-layer variant
+has a tail of one SSD layer, the reduced config none).
 """
+import dataclasses
 import functools
 
 import jax
@@ -41,10 +46,27 @@ BF16_TOL = 2e-3
 CACHE_DTYPES = {"ssm": ("float32",)}
 
 
+def reduced(get_config_fn, arch, n_layers=None):
+    """``arch``'s reduced config from one package, at ``n_layers`` if given."""
+    cfg = get_config_fn(arch).reduced()
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def flat(tree, path=""):
+    """A nested cache -> {"a.b": leaf}, so nested and flat caches compare
+    the same way."""
+    if not isinstance(tree, dict):
+        return {path: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flat(v, f"{path}.{k}" if path else k))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def reference(arch):
+def reference(arch, n_layers=None):
     """The JAX side, computed once per arch and returned as numpy."""
-    cfg = jax_config(arch).reduced()
+    cfg = reduced(jax_config, arch, n_layers)
     model = jax_build(cfg)
     params = model.init(jax.random.PRNGKey(0))
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, PROMPT))
@@ -56,8 +78,10 @@ def reference(arch):
     runs = {}
     for name in CACHE_DTYPES.get(cfg.family, ("float32", "bfloat16")):
         dtype = getattr(jnp, name)
-        # the reference's prefill casts its f32 K/V to the cache dtype
-        c = jax.tree.map(lambda x: x.astype(dtype), cache)
+        # the reference's prefill casts its f32 K/V to the cache dtype; each
+        # leaf takes the dtype of the family's cache (SSD states stay f32)
+        c = jax.tree.map(lambda x, t: x.astype(t.dtype), cache,
+                         model.init_cache(B, TOTAL, dtype))
         tok = jnp.argmax(last[:, -1:], axis=-1).astype(jnp.int32)
         toks, step_logits = [np.asarray(tok)], []
         for t in range(PROMPT, TOTAL):
@@ -66,14 +90,14 @@ def reference(arch):
             step_logits.append(np.asarray(lg))
             toks.append(np.asarray(tok))
         runs[name] = (toks, step_logits)
-    cache_np = {k: np.asarray(v) for k, v in cache.items()}
+    cache_np = {k: np.asarray(v) for k, v in flat(cache).items()}
     return (jax.tree.map(np.asarray, params), tokens, np.asarray(logits),
             np.asarray(last), cache_np, runs)
 
 
-def port(arch):
-    cfg = get_config(arch).reduced()
-    params_np, tokens = reference(arch)[:2]
+def port(arch, n_layers=None):
+    cfg = reduced(get_config, arch, n_layers)
+    params_np, tokens = reference(arch, n_layers)[:2]
     return (cfg, build_model(cfg, device="cpu"), params_from_jax(params_np),
             torch.from_numpy(tokens))
 
@@ -83,19 +107,20 @@ def _close(t, ref, tol):
                                atol=tol, rtol=tol)
 
 
-def check_forward(arch):
-    cfg, model, params, tokens = port(arch)
+def check_forward(arch, n_layers=None):
+    cfg, model, params, tokens = port(arch, n_layers)
     logits, _ = model.forward(params, {"tokens": tokens})
     assert tuple(logits.shape) == (B, PROMPT, cfg.vocab_size)
-    _close(logits, reference(arch)[2], TOL)
+    _close(logits, reference(arch, n_layers)[2], TOL)
 
 
-def check_prefill(arch):
-    cfg, model, params, tokens = port(arch)
+def check_prefill(arch, n_layers=None):
+    cfg, model, params, tokens = port(arch, n_layers)
     last, cache = prefill(cfg, params, {"tokens": tokens}, cache_len=TOTAL,
                           cache_dtype=torch.float32, use_kernels=True)
-    ref_last, ref_cache = reference(arch)[3:5]
+    ref_last, ref_cache = reference(arch, n_layers)[3:5]
     _close(last, ref_last, TOL)
+    cache = flat(cache)
     assert sorted(cache) == sorted(ref_cache)
     for key, ref in ref_cache.items():
         assert tuple(cache[key].shape) == ref.shape, key
@@ -114,16 +139,17 @@ def _assert_same_token(tok, ref_tok, ref_logits, tol):
         assert gap <= tol, f"row {b}: token {tok[b]} vs {ref_tok[b]}, gap {gap}"
 
 
-def check_greedy_decode(arch, cache_dtype):
+def check_greedy_decode(arch, cache_dtype, n_layers=None):
     """Greedy decode after prefill; both sides are fed the reference's
     tokens, so a tie that breaks differently does not fork the sequences."""
-    cfg, model, params, tokens = port(arch)
-    ref_toks, ref_logits = reference(arch)[5][cache_dtype]
+    cfg, model, params, tokens = port(arch, n_layers)
+    ref_toks, ref_logits = reference(arch, n_layers)[5][cache_dtype]
     tol = TOL if cache_dtype == "float32" else BF16_TOL
     last, cache = prefill(cfg, params, {"tokens": tokens}, cache_len=TOTAL,
                           cache_dtype=getattr(torch, cache_dtype),
                           use_kernels=True)
-    _assert_same_token(greedy_tokens(last), ref_toks[0], reference(arch)[3], tol)
+    _assert_same_token(greedy_tokens(last), ref_toks[0],
+                       reference(arch, n_layers)[3], tol)
     for i, t in enumerate(range(PROMPT, TOTAL)):
         tok = torch.from_numpy(ref_toks[i].astype(np.int64))
         lg, cache = model.decode_step(params, cache, tok, t)

@@ -26,6 +26,9 @@ Tolerances, all f32 on both sides, only summation orders differ:
   relative; mamba2-2.7b: params 2.9e-6 apart (relative norm 7.9e-6), mu
   8.9e-8, nu 2.0e-8, step-10 loss 8.1e-8 relative.  No element hit the
   near-zero amplification here.
+
+``n_layers`` replaces the reduced depth (the hybrid's 5-layer variant, whose
+tail holds one SSD layer).
 """
 import functools
 
@@ -47,6 +50,7 @@ from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import (
     batch_to_device, make_train_step, value_and_grad,
 )
+from torch_slice_parity import reduced
 
 B, T = 4, 80
 LOSS_RTOL = 1e-5
@@ -61,7 +65,10 @@ LIVE_LEAVES = {"dense": ("blocks.attn.wq", "blocks.attn.wk", "blocks.attn.wv"),
                        "blocks.moe.router", "blocks.moe.w_up",
                        "blocks.moe.w_gate", "blocks.moe.w_down"),
                "ssm": ("blocks.ssm.in_proj", "blocks.ssm.A_log",
-                       "blocks.ssm.dt_bias")}
+                       "blocks.ssm.dt_bias"),
+               "hybrid": ("shared.attn.wq", "shared.attn.wk", "shared.attn.wv",
+                          "shared.attn.wo", "adapt_in", "adapt_out",
+                          "groups.ssm.in_proj", "groups.ssm.A_log")}
 
 
 def _leaves(tree, path=()):
@@ -96,8 +103,8 @@ def batch(cfg, step):
 
 
 @functools.lru_cache(maxsize=None)
-def reference_grads(arch, use_pallas):
-    cfg = jax_config(arch).reduced()
+def reference_grads(arch, use_pallas, n_layers=None):
+    cfg = reduced(jax_config, arch, n_layers)
     model = jax_build(cfg, use_pallas=use_pallas)
     params = model.init(jax.random.PRNGKey(0))
     b = {k: jnp.asarray(v) for k, v in batch(cfg, 0).items()}
@@ -106,11 +113,11 @@ def reference_grads(arch, use_pallas):
     return tonp(params), float(loss), tonp(metrics), tonp(grads)
 
 
-def check_loss_and_grads(arch, use_pallas):
+def check_loss_and_grads(arch, use_pallas, n_layers=None):
     """``loss``, its metrics and every gradient against the reference's
-    ``jax.value_and_grad(model.loss)``."""
-    params_np, loss, metrics, grads = reference_grads(arch, use_pallas)
-    cfg = get_config(arch).reduced()
+    ``jax.value_and_grad(model.loss)``.  Returns the port's gradients."""
+    params_np, loss, metrics, grads = reference_grads(arch, use_pallas, n_layers)
+    cfg = reduced(get_config, arch, n_layers)
     model = build_model(cfg, device="cpu")
     params = params_from_jax(params_np)
     t_loss, t_metrics, t_grads = value_and_grad(
@@ -126,17 +133,18 @@ def check_loss_and_grads(arch, use_pallas):
     leaves = dict(_leaves(t_grads))
     for name in LIVE_LEAVES[cfg.family]:
         assert np.abs(_np(leaves[name])).sum() > 0, name
+    return t_grads
 
 
 SNAPSHOT_STEPS = (1, 10)
 
 
 @functools.lru_cache(maxsize=None)
-def reference_training(arch, n_microbatches):
+def reference_training(arch, n_microbatches, n_layers=None):
     """One reference run of max(SNAPSHOT_STEPS) steps: the initial params,
     and (params, opt state) after each snapshot step, plus every step's
     metrics."""
-    cfg = jax_config(arch).reduced()
+    cfg = reduced(jax_config, arch, n_layers)
     step_fn, model, opt_init = jax_make_train_step(
         cfg, JaxOptimizerConfig(**OPT), n_microbatches=n_microbatches)
     params = model.init(jax.random.PRNGKey(0))
@@ -154,12 +162,12 @@ def reference_training(arch, n_microbatches):
     return start, snaps, history
 
 
-def check_training(arch, n_microbatches, steps):
+def check_training(arch, n_microbatches, steps, n_layers=None):
     """``make_train_step`` for ``steps`` steps: params, optimizer state and
     the metrics of every step against the reference."""
-    start, snaps, hist_ref = reference_training(arch, n_microbatches)
+    start, snaps, hist_ref = reference_training(arch, n_microbatches, n_layers)
     params_ref, state_ref = snaps[steps]
-    cfg = get_config(arch).reduced()
+    cfg = reduced(get_config, arch, n_layers)
     step_fn, model, opt_init = make_train_step(
         cfg, OptimizerConfig(**OPT), n_microbatches=n_microbatches, device="cpu")
     params = params_from_jax(start)
