@@ -24,7 +24,12 @@ each (``{"phase": ...}``):
             a share of its element's tolerance (the worst f32 one of the
             forward is on the ``kernels`` line); the shapes include
             zamba2-7b's prefill and training, (8, 512 or 1024, same, 32, 32,
-            112), where the wide kernels (D > 80) run;
+            112), where the wide kernels (D > 80) run; whisper-medium's
+            encoder (8, 1500, 1500, 16, 16, 64, non-causal, a ragged last
+            tile), cross attention (8, 448, 1500, ...) and decoder (8, 448,
+            448, ..., causal), the backward too; the VLM's self (8, 512, 512,
+            64, 8, 128, causal) and cross attention (8, 512, 1601, ...,
+            non-causal), the forward only;
   main      ``repro_torch.api.generate("gpt-2b", batch=8, prompt_len=512,
             gen_tokens=32)`` at full width with launch counts reset just
             before and read just after (32 flash launches: one per layer);
@@ -118,6 +123,36 @@ each (``{"phase": ...}``):
             gradient of ``loss`` with the kernels against the plain versions
             (1e-4 relative), every gradient finite, the shared block's, the
             adapters' and the SSD projections' non-zero;
+  main_audio  ``generate("whisper-medium", batch=8, prompt_len=416,
+            gen_tokens=32)`` at full width and depth (24 encoder layers over
+            1500 frames, 24 decoder layers; 448 decoder positions, Whisper's
+            published context): 72 flash launches in prefill (24 non-causal
+            encoder, 24 causal decoder, 24 cross over the 1500 memory rows),
+            D = 64, 16 heads MHA; decode attention, self and cross, is plain;
+  contract_audio  at full width and depth, batch 2 x 40, prefill 32, over
+            unit-scale frames: prefill then stepwise decode (float32 cache)
+            against the full forward, and the forward with the kernels
+            against the plain forward (2e-3);
+  train_audio  whisper-medium's training at full width and depth, 8 x 448
+            tokens over 1500 frames per row, 3 steps, through
+            ``make_train_step`` under ``fit(train_step=..., state=...)``
+            (fit's pipeline makes no frames), no checkpoint: per step 144
+            flash forward launches (per-layer remat) and 72 of each backward
+            kernel; finite losses, step 1's loss against the plain path's;
+  train_contract_audio  at full width and depth, batch 1 x 448: every
+            gradient of ``loss`` with the kernels against plain attention
+            (1e-4 relative), every gradient finite, the encoder's (reached
+            only through the decoder's cross attention) non-zero;
+  main_vlm  ``generate`` of llama-3.2-vision-90b at full width and 10 of
+            its 100 layers (2 groups of 4 self blocks and a gated cross
+            block over 1601 image tokens; 10.66 B parameters, 42.6 GB: full
+            depth fits no card, and it does not train on one), batch 8,
+            prompt 512, 32 new tokens: 10 flash launches in prefill at D =
+            128, GQA 8;
+  contract_vlm  as contract_audio at 10 layers over unit-scale image
+            embeddings, with the cross blocks' gates at 0.5 (0 at init,
+            where they add nothing); closing them must move the logits by
+            more than the tolerance;
   kernel    also the RMSNorm kernel (``rmsnorm``, K4) against its plain
             version: the reference's cases (f32 atol 1e-6, bf16 2e-2), its
             swept blocks on 256 and 200 rows (2e-5), D = 100 on one row, and
@@ -165,7 +200,8 @@ each (``{"phase": ...}``):
             (K5 launches);
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
-            training shape, of gpt-2b and, f32, of granite-moe and zamba2-7b,
+            training shape, of gpt-2b and, f32, of granite-moe, zamba2-7b and
+            whisper-medium, the forward at the VLM's two shapes,
             K5 at mamba2's and zamba2-7b's prefill and training shapes, K4
             at the full-width hidden states) against its plain version, a
             PyTorch call that computes the same
@@ -185,7 +221,11 @@ two control-plane phases', ``launches_moe`` and ``launches_train_moe``
 granite-moe's, with the flash kernels' numbers at its shapes under
 ``granite_prefill`` / ``granite_train``; ``launches_hybrid`` and
 ``launches_train_hybrid`` zamba2-7b's, with K1-K3's and K5's numbers at its
-shapes under ``zamba_prefill`` / ``zamba_train``), the ``nvidia-smi`` line,
+shapes under ``zamba_prefill`` / ``zamba_train``; ``launches_audio``,
+``launches_train_audio`` and ``launches_vlm`` the new phases', with K1's
+numbers under ``whisper_enc`` / ``whisper_cross`` / ``whisper_dec`` /
+``vlm_self`` / ``vlm_cross`` and K2's and K3's under the three whisper
+ones), the ``nvidia-smi`` line,
 and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; without a card it exits 2 and prints no result.
@@ -314,8 +354,41 @@ HYBRID_TRAIN_BT = (8, 1024)
 HYBRID_TRAIN_LAYERS = 27
 ZAMBA_PREFILL = (8, 512, 512, 32, 32, 112, True, 0)
 ZAMBA_TRAIN = (8, 1024, 1024, 32, 32, 112, True, 0)
+# whisper-medium: 24 encoder layers over 1500 frames (non-causal) and 24
+# decoder layers (causal self attention, then cross attention over the
+# encoder's output), 16 heads x 64, MHA, at full width and depth.  Serving
+# runs a 416-token prompt and 32 new tokens, 448 decoder positions:
+# Whisper's published decoder context (n_text_ctx = 448, arXiv:2212.04356);
+# training 8 x 448 tokens, 1500 frames per row
+AUDIO_ARCH = "whisper-medium"
+AUDIO_SERVE = dict(batch=8, prompt_len=416, gen_tokens=32)
+AUDIO_TRAIN_BT = (8, 448)
+WHISPER_ENC = (8, 1500, 1500, 16, 16, 64, False, 0)
+WHISPER_CROSS = (8, 448, 1500, 16, 16, 64, False, 0)
+WHISPER_DEC = (8, 448, 448, 16, 16, 64, True, 0)
+WHISPER_CASES = (WHISPER_ENC, WHISPER_CROSS, WHISPER_DEC)
+# llama-3.2-vision-90b at full width (d 8192, 64 heads x 128 on 8 KV heads,
+# swiglu d_ff 28672, vocab 128256, 1601 image tokens), depth cut 100 -> 10
+# layers (2 groups of 4 self blocks and 1 cross block): each block is 855.6 M
+# parameters, embed and lm_head 2.10 B, so 10 layers are 10.66 B, 42.6 GB in
+# f32; full depth (87.7 B, 351 GB) fits no card.  It serves only: training
+# even 5 layers needs 16 B x 6.38 B = 102 GB of params, gradients and AdamW
+# moments
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 10
+VLM_SERVE = dict(batch=8, prompt_len=512, gen_tokens=32)
+VLM_SELF = (8, 512, 512, 64, 8, 128, True, 0)
+VLM_CROSS = (8, 512, 1601, 64, 8, 128, False, 0)
+VLM_CASES = (VLM_SELF, VLM_CROSS)
+# the VLM's tanh gates start at 0, where its cross blocks add nothing and a
+# contract cannot see them: its contract runs with them at this value
+VLM_GATE = 0.5
+# the kernels line's names of this slice's flash shapes
+NEW_SHAPES = {"whisper_enc": WHISPER_ENC, "whisper_cross": WHISPER_CROSS,
+              "whisper_dec": WHISPER_DEC, "vlm_self": VLM_SELF,
+              "vlm_cross": VLM_CROSS}
 # the flash shapes whose backward kernels are timed
-TRAIN_CASES = (GPT2B_TRAIN, GRANITE_TRAIN, ZAMBA_TRAIN)
+TRAIN_CASES = (GPT2B_TRAIN, GRANITE_TRAIN, ZAMBA_TRAIN) + WHISPER_CASES
 EXTRA_CASES = [
     GPT2B_PREFILL,                         # the serving path's shape
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
@@ -485,9 +558,9 @@ def check_kernel_cases(gen):
     from repro_torch.kernels.ref import flash_attention_ref
 
     failures, errs, worst = [], {}, (0.0, None)
-    for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_PREFILL,
-                                             GRANITE_TRAIN, ZAMBA_PREFILL,
-                                             ZAMBA_TRAIN]:
+    for case in FLASH_CASES + EXTRA_CASES + [
+            GPT2B_TRAIN, GRANITE_PREFILL, GRANITE_TRAIN, ZAMBA_PREFILL,
+            ZAMBA_TRAIN, *WHISPER_CASES, *VLM_CASES]:
         causal, window = case[6], case[7]
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(case, dtype, gen)
@@ -534,7 +607,7 @@ def check_bwd_kernel_cases(gen):
 
     failures, errs = [], {}
     for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_TRAIN,
-                                             ZAMBA_TRAIN]:
+                                             ZAMBA_TRAIN, *WHISPER_CASES]:
         causal, window = case[6], case[7]
         kw = dict(causal=causal, window=window)
         for dtype in ("float32", "bfloat16"):
@@ -793,7 +866,8 @@ def run_timing(gen):
     runs = [(c, d) for c in (GPT2B_PREFILL, GPT2B_TRAIN)
             for d in ("float32", "bfloat16")]
     runs += [(c, "float32") for c in (GRANITE_PREFILL, GRANITE_TRAIN,
-                                      ZAMBA_PREFILL, ZAMBA_TRAIN)]
+                                      ZAMBA_PREFILL, ZAMBA_TRAIN,
+                                      *WHISPER_CASES, *VLM_CASES)]
     for case, dtype in runs:
         kw = dict(causal=case[6], window=case[7])
         # SDPA takes GQA's shared KV heads as they are (enable_gqa)
@@ -1836,6 +1910,269 @@ def run_train_contract_hybrid():
 
 
 # ---------------------------------------------------------------------------
+# The audio family (whisper-medium) and the VLM (llama-3.2-vision-90b at 10
+# layers): K1/K2/K3 non-causal and cross-shaped
+# ---------------------------------------------------------------------------
+
+
+def vlm_config():
+    """llama-3.2-vision-90b at the depth it serves at on one card."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+
+
+def cross_launches(cfg, steps: int = 1, train: bool = False) -> dict:
+    """K1 once per attention of a forward: the audio family's encoder
+    layers and its decoder layers' self and cross attention; the VLM's self
+    and cross blocks.  A training step runs each forward twice (per-layer
+    remat) and K2 / K3 once per attention."""
+    from repro_torch.kernels import LAUNCHES
+    n = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "audio"
+         else cfg.n_layers)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want["flash_attention_fwd"] = (2 if train else 1) * n * steps
+    if train:
+        want["flash_attention_bwd_dq"] = want["flash_attention_bwd_dkv"] = n * steps
+    return want
+
+
+def unit_memory(cfg, batch, gen):
+    """The family's frontend input at unit scale, N(0, 1): the contracts'
+    memory moves the logits as much as the tokens do (``generate`` draws
+    0.02 N(0, 1))."""
+    from repro_torch.models.api import MODALITY
+    key, rows = MODALITY[cfg.family]
+    return {key: torch.randn((batch, getattr(cfg, rows), cfg.d_model),
+                             generator=gen, device=gen.device)}
+
+
+def open_gates(params, value=VLM_GATE):
+    for g in ("gate_a", "gate_m"):
+        params["cross_blocks"][g].fill_(value)
+
+
+def run_main_cross(phase, cfg, serve):
+    """``generate`` of a cross-attention family (its frontend input drawn by
+    ``generate``), launch counts reset just before and read just after."""
+    from repro_torch.api import generate
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = generate(cfg, seed=0, **serve)
+    launches = dict(LAUNCHES)
+    toks = res["tokens"]
+    want = cross_launches(cfg)
+    emit(phase, arch=cfg.arch_id, **serve, n_layers=cfg.n_layers,
+         enc_layers=cfg.enc_layers, launches=launches, launches_expected=want,
+         tokens_shape=list(toks.shape), prefill_s=res["prefill_s"],
+         decode_s=res["decode_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches != want:
+        raise SystemExit(f"expected {want} launches in {cfg.arch_id} generate, "
+                         f"got {launches}")
+    shape = (serve["batch"], serve["gen_tokens"])
+    if toks.shape != shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise SystemExit(f"bad tokens: shape {toks.shape}, "
+                         f"range [{toks.min()}, {toks.max()}]")
+    return launches
+
+
+def run_contract_cross(phase, cfg):
+    """Prefill plus stepwise decode (f32 cache) against the full forward,
+    and the forward with the kernels against the plain forward, at full
+    width, batch 2 x 40 (prefill 32), over a unit-scale memory; the VLM's
+    gates at VLM_GATE, and how far closing them moves the logits (over the
+    tolerance, or the contract could not see the cross blocks)."""
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.models.prefill import prefill
+
+    model = build_model(cfg)                       # kernels on, cuda
+    gen = generator(model.device, 1)
+    params = model.init(gen)
+    if cfg.family == "vlm":
+        open_gates(params)
+    B, T, t0 = 2, 40, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=model.device)
+    memory = unit_memory(cfg, B, gen)
+    feed = {"tokens": tokens, **memory}
+    full, _ = model.forward(params, feed)
+    plain = build_model(cfg, use_kernels=False).forward(params, feed)[0]
+    finite = bool(torch.isfinite(full).all())
+    kernel_vs_plain = (full - plain).abs().max().item()
+    del plain
+    gates_moved = None
+    if cfg.family == "vlm":
+        open_gates(params, 0.0)
+        gates_moved = (model.forward(params, feed)[0] - full).abs().max().item()
+        open_gates(params)
+    last, cache = prefill(cfg, params, {"tokens": tokens[:, :t0], **memory},
+                          cache_len=T, cache_dtype=torch.float32,
+                          use_kernels=True)
+    errs = [(last[:, 0] - full[:, t0 - 1]).abs().max().item()]
+    for t in range(t0, T):
+        lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1], t)
+        errs.append((lg[:, 0] - full[:, t]).abs().max().item())
+    emit(phase, arch=cfg.arch_id, batch=B, tokens=T, prefill_len=t0,
+         n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         logits_shape=list(full.shape), finite=finite,
+         cache_shapes={k: list(v.shape) for k, v in cache.items()},
+         max_abs_logit=full.abs().max().item(),
+         max_abs_err_decode_vs_forward=max(errs),
+         max_abs_err_kernel_vs_plain_forward=kernel_vs_plain, tol=CONTRACT_TOL,
+         **({"gate": VLM_GATE, "max_abs_logit_change_gates_closed": gates_moved}
+            if gates_moved is not None else {}))
+    del params, full, cache
+    free_memory()
+    if not finite or max(errs) > CONTRACT_TOL or kernel_vs_plain > CONTRACT_TOL:
+        raise SystemExit(f"{cfg.arch_id} serving contract failed at full width")
+    if gates_moved is not None and gates_moved <= CONTRACT_TOL:
+        raise SystemExit(f"{cfg.arch_id}: the cross blocks move the logits by "
+                         f"{gates_moved}, under the contract's tolerance")
+
+
+def run_train_audio():
+    """whisper-medium's training at full width and depth through
+    ``make_train_step`` under ``fit(train_step=..., state=...)``: the step
+    adds the frames (drawn as ``generate`` draws them) to each batch of
+    fit's pipeline, which makes tokens only; no checkpoint is written."""
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model, modality_inputs
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import batch_to_device, make_train_step
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = get_config(AUDIO_ARCH)
+    (B, T), seed = AUDIO_TRAIN_BT, 0
+    step_fn, model, opt_init = make_train_step(cfg, OptimizerConfig(
+        warmup_steps=TRAIN_STEPS, total_steps=TRAIN_STEPS))
+    gen = generator(model.device, seed)
+    params = model.init(gen)
+    frames = modality_inputs(cfg, B, gen)
+    batch0 = batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, B, seed), 0),
+                             model.device)
+    plain = build_model(cfg, use_kernels=False, remat=False)
+    with torch.no_grad():
+        plain_loss0 = plain.loss(params, {**batch0, **frames})[0].item()
+    del batch0
+    free_memory()
+    mem_before_gb = torch.cuda.memory_allocated() / 1e9
+
+    def train_step(params, opt_state, batch):
+        return step_fn(params, opt_state, {**batch, **frames})
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_audio_", dir=build_dir)
+    try:
+        config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=1000, log_every=1,
+            ckpt_dir=ckpt_dir))
+        state = {"params": params, "opt_state": opt_init(params)}
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fit(cfg, config, train_step=train_step, state=state, seed=seed,
+                  log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        written = os.listdir(ckpt_dir)
+        del res["state"], state
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_memory()
+    hist = res["history"]
+    steps = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "lr",
+                                "accuracy")} for h in hist]
+    step_s = [h["time_s"] for h in hist]
+    tok_s = 2 * B * T / (step_s[1] + step_s[2])
+    want = cross_launches(cfg, TRAIN_STEPS, train=True)
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    step1_rel = abs(hist[0]["loss"] - plain_loss0) / abs(plain_loss0)
+    emit("train_audio", arch=AUDIO_ARCH, batch=B, seq_len=T,
+         enc_frames=cfg.enc_frames, steps=steps, launches=launches,
+         launches_expected=want,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         step_s=step_s, tokens_per_s_steps_2_3=tok_s, fit_s=fit_s,
+         peak_mem_gb=peak_gb,
+         mem_allocated_gb={"before_fit": mem_before_gb,
+                           "after_release": torch.cuda.memory_allocated() / 1e9},
+         step1_loss=hist[0]["loss"], plain_loss_step1=plain_loss0,
+         step1_rel_err=step1_rel, step1_tol=STEP1_TOL,
+         checkpoint_files=written, finite=finite)
+    if len(hist) != TRAIN_STEPS or not finite:
+        raise SystemExit(f"audio training did not give {TRAIN_STEPS} finite steps")
+    if launches != want:
+        raise SystemExit(f"audio training launches {launches}, expected {want}")
+    if step1_rel > STEP1_TOL:
+        raise SystemExit(f"audio step 1 loss {hist[0]['loss']} vs the plain "
+                         f"path's {plain_loss0}")
+    if written:
+        raise SystemExit(f"audio training wrote a checkpoint: {written}")
+    return launches
+
+
+# gradient leaves of whisper that the kernels feed and that must train; the
+# encoder's reach the loss only through the decoder's cross attention
+AUDIO_LIVE = ("enc_blocks.attn.wq", "enc_blocks.attn.wk", "enc_blocks.attn.wv",
+              "enc_blocks.mlp.w_up", "dec_blocks.attn.wq", "dec_blocks.xattn.wq",
+              "dec_blocks.xattn.wk", "dec_blocks.xattn.wv", "pos_embed")
+
+
+def run_train_contract_audio():
+    """Every gradient of the loss with the kernels (K1, K2 / K3) against
+    plain attention, at full width and depth, batch 1 x 448 over 1500
+    unit-scale frames; every gradient finite, the encoder's and the
+    attention projections' non-zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device, value_and_grad
+
+    cfg = get_config(AUDIO_ARCH)
+    T = AUDIO_TRAIN_BT[1]
+    torch.cuda.reset_peak_memory_stats()
+    kern = build_model(cfg)                               # kernels on, remat
+    plain = build_model(cfg, use_kernels=False)
+    gen = generator(kern.device, 2)
+    params = kern.init(gen)
+    batch = {**batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, 1, 2), 0),
+                               kern.device), **unit_memory(cfg, 1, gen)}
+    loss_k, _, g_k = value_and_grad(kern.loss, params, batch)
+    loss_p, _, g_p = value_and_grad(plain.loss, params, batch)
+    rel, bad = {}, []
+    for (path, a), (_, b) in zip(_leaves(g_k), _leaves(g_p)):
+        name = ".".join(path)
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            bad.append(f"{name} not finite")
+        if name in AUDIO_LIVE and not bool(a.abs().sum() > 0):
+            bad.append(f"{name} zero")
+    worst = max(rel.values())
+    emit("train_contract_audio", arch=AUDIO_ARCH, batch=1, seq_len=T,
+         enc_frames=cfg.enc_frames, loss_kernels=loss_k.item(),
+         loss_plain=loss_p.item(), rel_grad_err=rel, max_rel_grad_err=worst,
+         tol=TRAIN_CONTRACT_TOL, bad_grads=bad,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del g_k, g_p, params
+    free_memory()
+    if bad or worst > TRAIN_CONTRACT_TOL:
+        raise SystemExit(f"audio training contract failed: max rel err {worst}, "
+                         f"{bad}")
+
+
+# ---------------------------------------------------------------------------
 # K4 (RMSNorm), kbench on the card and the planner priced from its table
 # ---------------------------------------------------------------------------
 
@@ -2375,6 +2712,20 @@ def main() -> int:
     hybrid_train_launches, _ = run_train_hybrid()
     run_train_contract_hybrid()
     free_memory()
+    from repro_torch.configs import get_config
+    audio_serve_launches = run_main_cross("main_audio", get_config(AUDIO_ARCH),
+                                          AUDIO_SERVE)
+    free_memory()
+    run_contract_cross("contract_audio", get_config(AUDIO_ARCH))
+    free_memory()
+    audio_train_launches = run_train_audio()
+    free_memory()
+    run_train_contract_audio()
+    free_memory()
+    vlm_serve_launches = run_main_cross("main_vlm", vlm_config(), VLM_SERVE)
+    free_memory()
+    run_contract_cross("contract_vlm", vlm_config())
+    free_memory()
     table, fp, kbench_launches = run_kbench()
     run_plan(table, fp)
     compile_launches = run_compile(table, fp, train_launches, train_summary)
@@ -2425,6 +2776,11 @@ def main() -> int:
                                      fwd_errs[ZAMBA_PREFILL]),
               zamba_train=at_shape("flash_attention_fwd", ZAMBA_TRAIN,
                                    fwd_errs[ZAMBA_TRAIN]),
+              launches_audio=audio_serve_launches["flash_attention_fwd"],
+              launches_train_audio=audio_train_launches["flash_attention_fwd"],
+              launches_vlm=vlm_serve_launches["flash_attention_fwd"],
+              **{name: at_shape("flash_attention_fwd", case, fwd_errs[case])
+                 for name, case in NEW_SHAPES.items()},
               train_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["ms"],
               train_bound_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["bound_ms"],
               train_library_ms=rows[("flash_attention_fwd", GPT2B_TRAIN,
@@ -2444,7 +2800,13 @@ def main() -> int:
                   bwd_err[("flash_attention_bwd_dq", GRANITE_TRAIN)]),
               zamba_train=at_shape(
                   "flash_attention_bwd_dq", ZAMBA_TRAIN,
-                  bwd_err[("flash_attention_bwd_dq", ZAMBA_TRAIN)])),
+                  bwd_err[("flash_attention_bwd_dq", ZAMBA_TRAIN)]),
+              launches_audio=audio_serve_launches["flash_attention_bwd_dq"],
+              launches_train_audio=audio_train_launches["flash_attention_bwd_dq"],
+              launches_vlm=vlm_serve_launches["flash_attention_bwd_dq"],
+              **{name: at_shape("flash_attention_bwd_dq", case,
+                                bwd_err[("flash_attention_bwd_dq", case)])
+                 for name, case in NEW_SHAPES.items() if case in TRAIN_CASES}),
         entry("flash_attention_bwd_dkv", bwd_src,
               "src/repro/kernels/flash_attention.py:258",
               train_launches["flash_attention_bwd_dkv"],
@@ -2458,7 +2820,13 @@ def main() -> int:
                   bwd_err[("flash_attention_bwd_dkv", GRANITE_TRAIN)]),
               zamba_train=at_shape(
                   "flash_attention_bwd_dkv", ZAMBA_TRAIN,
-                  bwd_err[("flash_attention_bwd_dkv", ZAMBA_TRAIN)])),
+                  bwd_err[("flash_attention_bwd_dkv", ZAMBA_TRAIN)]),
+              launches_audio=audio_serve_launches["flash_attention_bwd_dkv"],
+              launches_train_audio=audio_train_launches["flash_attention_bwd_dkv"],
+              launches_vlm=vlm_serve_launches["flash_attention_bwd_dkv"],
+              **{name: at_shape("flash_attention_bwd_dkv", case,
+                                bwd_err[("flash_attention_bwd_dkv", case)])
+                 for name, case in NEW_SHAPES.items() if case in TRAIN_CASES}),
         {"name": "ssd_intra", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_intra.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:59",
@@ -2500,6 +2868,9 @@ def main() -> int:
                            "train_moe": moe_train_launches["rmsnorm"],
                            "main_hybrid": hybrid_serve_launches["rmsnorm"],
                            "train_hybrid": hybrid_train_launches["rmsnorm"],
+                           "main_audio": audio_serve_launches["rmsnorm"],
+                           "train_audio": audio_train_launches["rmsnorm"],
+                           "main_vlm": vlm_serve_launches["rmsnorm"],
                            "compile": compile_launches["rmsnorm"]},
          "launches_cli": cli_launches["rmsnorm"],
          "wide_shape": list(RMS_WIDE[1]),

@@ -5,8 +5,11 @@ Run from the repository root: ``python3 scripts/torch_profile_fit.py``
 (defaults: full-width gpt-2b, batch 8 x 1024 tokens, 3 steps, the AdamW
 that ``fit`` builds; ``--arch mamba2-2.7b`` profiles the SSM family,
 ``--arch granite-moe-1b-a400m`` the MoE family, ``--arch zamba2-7b
---n-layers 27`` the hybrid family at the depth that fits one 80 GB card).
-Prints JSON lines:
+--n-layers 27`` the hybrid family at the depth that fits one 80 GB card,
+``--arch whisper-medium --seq-len 448`` the audio family at full depth,
+through ``fit(train_step=..., state=...)`` with a step that adds the
+frames, drawn once as ``generate`` draws them, to each batch).  Prints JSON
+lines:
 
   fit      ``fit``'s own history: per-step seconds, loss and grad norm,
            tokens/s over steps 2..N, peak device memory;
@@ -125,7 +128,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gpt-2b",
                     choices=["gpt-2b", "mamba2-2.7b",
-                             "granite-moe-1b-a400m", "zamba2-7b"])
+                             "granite-moe-1b-a400m", "zamba2-7b",
+                             "whisper-medium"])
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the arch's depth to this many layers (width kept)")
     ap.add_argument("--batch", type=int, default=8)
@@ -148,7 +152,8 @@ def main() -> int:
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.device import generator
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, modality_inputs
+    from repro_torch.models.api import MODALITY
     from repro_torch.train.optimizer import (
         OptimizerConfig, make_optimizer, tree_leaves, tree_map, tree_unflatten,
     )
@@ -183,10 +188,23 @@ def main() -> int:
 
     config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
         total_steps=n, ckpt_every=n + 1, log_every=1, ckpt_dir=ckpt_dir))
+    opt_cfg = OptimizerConfig(warmup_steps=min(20, n), total_steps=n)
+    extra, custom = {}, {}
+    if cfg.family in MODALITY:
+        # fit's pipeline makes tokens only: the step adds the frontend input
+        step_fn, model, opt_init = make_train_step(cfg, opt_cfg)
+        gen = generator(model.device, args.seed)
+        params = model.init(gen)
+        extra = modality_inputs(cfg, B, gen)
+        custom = {"train_step": lambda p, s, b: step_fn(p, s, {**b, **extra}),
+                  "state": {"params": params, "opt_state": opt_init(params)}}
+        del params
     torch.cuda.reset_peak_memory_stats()
     try:
         res = fit(cfg, config, seed=args.seed, on_step_time=on_step_time,
-                  log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+                  log_fn=lambda m: print(m, file=sys.stderr, flush=True),
+                  **custom)
+        custom.clear()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     hist = res["history"]
@@ -212,11 +230,10 @@ def main() -> int:
     del res
     free_memory()
     model = build_model(cfg)
-    _, opt_update = make_optimizer(OptimizerConfig(
-        warmup_steps=min(20, n), total_steps=n))
+    _, opt_update = make_optimizer(opt_cfg)
     data = DataConfig(cfg.vocab_size, T, B, args.seed)
     for step in (n, n + 1):
-        batch = batch_to_device(make_batch(data, step), model.device)
+        batch = {**batch_to_device(make_batch(data, step), model.device), **extra}
         out = {}
 
         def phase(name, fn):
@@ -250,14 +267,13 @@ def main() -> int:
 
     # ---- the same steps with the kernels' plain versions ----
     if args.plain_steps:
-        step_fn, plain, opt_init = make_train_step(
-            cfg, OptimizerConfig(warmup_steps=min(20, n), total_steps=n),
-            use_kernels=False)
+        step_fn, plain, opt_init = make_train_step(cfg, opt_cfg, use_kernels=False)
         params = plain.init(generator(plain.device, args.seed))
         opt_state = opt_init(params)
         losses = []
         for step in range(args.plain_steps):
-            params, opt_state, m = step_fn(params, opt_state, make_batch(data, step))
+            params, opt_state, m = step_fn(params, opt_state,
+                                           {**make_batch(data, step), **extra})
             losses.append(float(m["loss"]))
         emit("plain", steps=args.plain_steps, losses=losses,
              kernel_losses=[h["loss"] for h in hist[:args.plain_steps]])

@@ -5,7 +5,11 @@ Run from the repository root: ``python3 scripts/torch_profile_generate.py``
 (defaults: full-width gpt-2b, batch 8, prompt 512, 32 new tokens;
 ``--arch mamba2-2.7b`` profiles the SSM family, ``--arch
 granite-moe-1b-a400m`` the MoE family, ``--arch zamba2-7b`` the hybrid
-family at full depth).  Prints JSON lines:
+family at full depth, ``--arch whisper-medium --prompt-len 416`` the audio
+family at full depth (448 decoder positions), ``--arch
+llama-3.2-vision-90b --n-layers 10`` the VLM at the depth that fits one
+80 GB card; their frame / image embeddings are drawn as ``generate`` draws
+them).  Prints JSON lines:
 
   generate   ``generate``'s own prefill_s / decode_tokens_per_s for a cold
              first call and for warm repeats (same seed, same tokens);
@@ -21,6 +25,7 @@ nothing runs without a card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -72,8 +77,11 @@ def profile_region(fn, label: str, out_dir: str, top: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gpt-2b",
-                    choices=["gpt-2b", "mamba2-2.7b",
-                             "granite-moe-1b-a400m", "zamba2-7b"])
+                    choices=["gpt-2b", "mamba2-2.7b", "granite-moe-1b-a400m",
+                             "zamba2-7b", "whisper-medium",
+                             "llama-3.2-vision-90b"])
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the arch's depth to this many layers (width kept)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen-tokens", type=int, default=32)
@@ -91,6 +99,7 @@ def main() -> int:
     from repro_torch.api import generate
     from repro_torch.configs import get_config
     from repro_torch.device import generator, resolve_device
+    from repro_torch.models import modality_inputs
     from repro_torch.models.prefill import prefill
     from repro_torch.serve.step import greedy_tokens, make_serve_step
 
@@ -101,12 +110,16 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
+    cfg = get_config(args.arch)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     kw = dict(batch=args.batch, prompt_len=args.prompt_len,
               gen_tokens=args.gen_tokens, seed=args.seed)
-    runs = [generate(args.arch, **kw) for _ in range(1 + args.repeats)]
+    runs = [generate(cfg, **kw) for _ in range(1 + args.repeats)]
     same = all((r["tokens"] == runs[0]["tokens"]).all() for r in runs)
     warm = runs[1:]
-    emit("generate", arch=args.arch, **kw, tokens_equal_across_runs=bool(same),
+    emit("generate", arch=args.arch, n_layers=cfg.n_layers, **kw,
+         tokens_equal_across_runs=bool(same),
          cold={k: runs[0][k] for k in ("prefill_s", "decode_s",
                                        "decode_tokens_per_s")},
          warm_prefill_s=[r["prefill_s"] for r in warm],
@@ -115,18 +128,18 @@ def main() -> int:
          warm_median_decode_tokens_per_s=statistics.median(
              r["decode_tokens_per_s"] for r in warm))
 
-    cfg = get_config(args.arch)
     dev = resolve_device(None)
     serve_step, model = make_serve_step(cfg, device=dev)
     gen = generator(dev, args.seed)
     params = model.init(gen)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    feed = {"tokens": tokens, **modality_inputs(cfg, args.batch, gen)}
     total = args.prompt_len + args.gen_tokens
     state = {}
 
     def run_prefill():
-        last, cache = prefill(cfg, params, {"tokens": tokens}, cache_len=total,
+        last, cache = prefill(cfg, params, feed, cache_len=total,
                               use_kernels=True)
         state["tok"], state["cache"] = greedy_tokens(last), cache
 

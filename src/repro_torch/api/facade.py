@@ -41,6 +41,7 @@ from repro_torch.core.planner import HAPTPlanner
 from repro_torch.core.strategy import IntraOpPlan, ParallelStrategy
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import DeviceLike, generator, resolve_device
+from repro_torch.models.api import MODALITY, modality_inputs
 from repro_torch.models.prefill import prefill
 from repro_torch.parallel.sharding import batch_shard_sizes, intra_op_mesh_axes
 from repro_torch.runtime.controller import (
@@ -806,19 +807,29 @@ def fit(arch: Union[str, ArchConfig],
     """Config -> model -> AdamW -> the fault-tolerant :class:`Trainer` loop.
 
     Runs on ``cuda`` unless ``device="cpu"``, with the port's kernels on
-    (flash attention for the dense and MoE families, the SSD intra-chunk
-    kernel for the SSM family, both for the hybrid family: its SSD layers
-    and its shared attention block).  The MoE family's loss adds the layers'
-    router aux losses (``aux_loss`` in each step's metrics).
+    (flash attention for the dense, MoE, VLM and audio families, the SSD
+    intra-chunk kernel for the SSM family, both for the hybrid family: its
+    SSD layers and its shared attention block).  The MoE family's loss adds
+    the layers' router aux losses (``aux_loss`` in each step's metrics).
     Pass ``train_step`` + ``state`` to run a custom step function; otherwise
     the arch's model is built, its params drawn from a generator seeded by
     ``seed`` (or taken from ``params``, a dict of tensors on the device), and
     AdamW with ``warmup_steps=min(20, total_steps)``.  ``config.data`` (or a
     ``DataConfig`` derived from the arch) feeds the deterministic synthetic
-    pipeline.  Returns ``{"final_step", "history", "state"}``; the state is
-    updated in place, step by step."""
+    pipeline, which makes tokens and labels only: the VLM and audio
+    families, whose batches also need ``image_embeds`` / ``frames``, train
+    only through a ``train_step`` that adds them (without one, ``fit``
+    raises ``ValueError`` before it builds anything).  Returns
+    ``{"final_step", "history", "state"}``; the state is updated in place,
+    step by step."""
     cfg = config if config is not None else HarpConfig()
     arch_cfg = _resolve_arch(arch)
+    if train_step is None and arch_cfg.family in MODALITY:
+        raise ValueError(
+            f"fit({arch_cfg.arch_id!r}): the {arch_cfg.family} family's batches "
+            f"need {MODALITY[arch_cfg.family][0]!r}, which the synthetic "
+            f"pipeline does not make; pass train_step=... and state=... with "
+            f"a step that adds it")
     if train_step is None:
         opt_cfg = optimizer or OptimizerConfig(
             warmup_steps=min(20, cfg.trainer.total_steps),
@@ -861,8 +872,13 @@ def generate(arch: Union[str, ArchConfig], *,
     state is float32 and does not grow with the sequence (``pos`` is unused
     by its decode step); the hybrid family's cache holds both: float32 SSD
     states per SSD layer beside a bfloat16 KV cache per application of its
-    shared attention block, (n_apps, B, S, KV, D).  MoE routing capacity is taken over the tokens of
-    each call: B * prompt_len in the prefill, B in each decode step.
+    shared attention block, (n_apps, B, S, KV, D).  The VLM's and the audio
+    family's stub frontend inputs, ``image_embeds`` (B, n_image_tokens, d)
+    and ``frames`` (B, enc_frames, d), are drawn as 0.02 N(0, 1) from the
+    generator after the prompt, as the reference does; their caches add
+    each cross layer's bfloat16 K/V of that memory.  MoE routing capacity is
+    taken over the tokens of each call: B * prompt_len in the prefill, B in
+    each decode step.
 
     Returns ``{"tokens": (B, gen_tokens) int array, "prefill_s",
     "decode_s", "decode_tokens_per_s"}``.  The first generated token comes
@@ -884,11 +900,12 @@ def generate(arch: Union[str, ArchConfig], *,
         tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.int64, device=dev)
         batch, prompt_len = tokens.shape
     total = prompt_len + gen_tokens
+    feed = {"tokens": tokens, **modality_inputs(cfg, batch, gen)}
 
     _sync(dev)
     t0 = time.perf_counter()
-    last_logits, cache = prefill(cfg, params, {"tokens": tokens},
-                                 cache_len=total, use_kernels=use_kernels)
+    last_logits, cache = prefill(cfg, params, feed, cache_len=total,
+                                 use_kernels=use_kernels)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     if log_fn:

@@ -1,24 +1,48 @@
-"""Unified model API, dense, MoE, SSM and hybrid families.
+"""Unified model API, every family: dense, MoE, SSM, hybrid, VLM and audio.
 
 Counterpart of ``repro/models/api.py``: ``build_model(cfg)`` returns a
 :class:`Model` of plain functions ``init / forward / loss / init_cache /
-decode_step`` bound to one device, dispatching on ``cfg.family``.
+decode_step`` bound to one device, dispatching on ``cfg.family``.  The
+VLM's batches also hold ``image_embeds`` and the audio family's ``frames``
+(:func:`modality_inputs`).  The reference's ``input_specs`` /
+``cache_specs`` / ``param_specs``, which only its launcher's dry run uses,
+come with the port's launcher.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import hybrid_lm, mamba_lm, moe_lm, transformer
+from repro_torch.models import (
+    encdec, hybrid_lm, mamba_lm, moe_lm, transformer, vlm,
+)
 from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.models.prefill import check_family
 
 _FAMILY = {"dense": transformer, "moe": moe_lm, "ssm": mamba_lm,
-           "hybrid": hybrid_lm}
+           "hybrid": hybrid_lm, "vlm": vlm, "audio": encdec}
+
+# the stub frontends' inputs beside the tokens: (batch key, row count)
+MODALITY = {"vlm": ("image_embeds", "n_image_tokens"),
+            "audio": ("frames", "enc_frames")}
+
+
+def modality_inputs(cfg: ArchConfig, batch: int,
+                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The family's stub-frontend input, ``{"image_embeds": (B,
+    n_image_tokens, d)}`` or ``{"frames": (B, enc_frames, d)}``, drawn as
+    0.02 N(0, 1) f32 on the generator's device, as the reference's
+    ``generate`` draws it; ``{}`` for the token-only families."""
+    if cfg.family not in MODALITY:
+        return {}
+    key, rows = MODALITY[cfg.family]
+    shape = (batch, getattr(cfg, rows), cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return {key: x.mul_(0.02)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,11 @@
-"""Attention: GQA/MQA/MHA self-attention (full / sliding-window / causal),
-and single-token decode against a KV cache.
+"""Attention: GQA/MQA/MHA self-attention (full / sliding-window / causal /
+bidirectional), cross-attention, and single-token decode against a KV cache.
 
 Counterpart of ``repro/models/attention.py``.  The plain torch path here is
-the reference implementation; the full-sequence path dispatches to the
-Hopper flash kernel (``repro_torch.kernels.ops``) when ``use_kernels``.
-Decode attention stays plain torch, as the reference's is jnp.
+the reference implementation; the full-sequence paths (self and cross
+attention) dispatch to the Hopper flash kernel (``repro_torch.kernels.ops``)
+when ``use_kernels``.  Decode attention stays plain torch, as the
+reference's is jnp.
 """
 from __future__ import annotations
 
@@ -97,7 +98,7 @@ def self_attention(p: Dict[str, Any], h: torch.Tensor, *,
                    rope_theta: float, causal: bool = True, window: int = 0,
                    positions: Optional[torch.Tensor] = None,
                    use_kernels: bool = False, return_kv: bool = False):
-    """Full-sequence self attention (prefill)."""
+    """Full-sequence self attention (train / prefill)."""
     B, T, _ = h.shape
     q = _split_heads(linear(h, p["wq"]), n_heads, head_dim)
     k = _split_heads(linear(h, p["wk"]), n_kv_heads, head_dim)
@@ -110,6 +111,32 @@ def self_attention(p: Dict[str, Any], h: torch.Tensor, *,
     k = shard_act(k, ("batch", "seq", "kv_heads", None))
     v = shard_act(v, ("batch", "seq", "kv_heads", None))
     out = _attention(q, k, v, causal=causal, window=window, use_kernels=use_kernels)
+    out = linear(out.reshape(B, T, -1), p["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def cross_kv(p: Dict[str, Any], memory: torch.Tensor, *, n_kv_heads: int,
+             head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross-attention block's K, V (B, M, KV, D) of the memory (B, M, d)."""
+    return (_split_heads(linear(memory, p["wk"]), n_kv_heads, head_dim),
+            _split_heads(linear(memory, p["wv"]), n_kv_heads, head_dim))
+
+
+def cross_attention(p: Dict[str, Any], h: torch.Tensor, memory: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    use_kernels: bool = False,
+                    memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    return_kv: bool = False):
+    """Cross attention of h (B, T, d) over an encoder / image memory (B, M,
+    d), non-causal: T and M differ.  ``memory_kv`` (k, v) (B, M, KV, D)
+    replaces the memory's projections; ``return_kv`` also returns them."""
+    B, T, _ = h.shape
+    q = _split_heads(linear(h, p["wq"]), n_heads, head_dim)
+    k, v = memory_kv if memory_kv is not None else cross_kv(
+        p, memory, n_kv_heads=n_kv_heads, head_dim=head_dim)
+    out = _attention(q, k, v, causal=False, window=0, use_kernels=use_kernels)
     out = linear(out.reshape(B, T, -1), p["wo"])
     if return_kv:
         return out, (k, v)
@@ -155,6 +182,18 @@ def decode_self_attention(p: Dict[str, Any], h: torch.Tensor,
     out = _masked_softmax_attend(q, k, v, valid[None, None, None, :]).to(h.dtype)
     out = linear(out.reshape(B, 1, -1), p["wo"])
     return out, (cache_k, cache_v)
+
+
+def decode_cross_attention(p: Dict[str, Any], h: torch.Tensor,
+                           mem_k: torch.Tensor, mem_v: torch.Tensor, *,
+                           n_heads: int, n_kv_heads: int, head_dim: int):
+    """Decode-time cross attention of h (B, 1, d) over a precomputed memory
+    K/V (B, M, KV, D), in any cache dtype: the scores and the weighted sum
+    are f32 (``attention_ref``), the output in h's dtype."""
+    B = h.shape[0]
+    q = _split_heads(linear(h, p["wq"]), n_heads, head_dim)
+    out = attention_ref(q, mem_k, mem_v, causal=False)
+    return linear(out.reshape(B, 1, -1), p["wo"])
 
 
 def init_kv_cache(batch: int, seq_len: int, n_kv_heads: int, head_dim: int,

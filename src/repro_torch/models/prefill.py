@@ -1,14 +1,17 @@
 """Prefill: full-sequence forward that RETURNS the serving state.
 
-Counterpart of ``repro/models/prefill.py``, dense, MoE, SSM and hybrid
-families.  ``prefill(cfg, params, batch, cache_len=None)`` ->
+Counterpart of ``repro/models/prefill.py``, every family: dense, MoE, SSM,
+hybrid, VLM and audio.  ``prefill(cfg, params, batch, cache_len=None)`` ->
 (last_logits (B,1,V), cache), the cache in the family's ``init_cache``
-layout, ready for ``decode_step``.  Each layer's K/V (dense, MoE and the
-hybrid's shared block, cast to the cache dtype as it lands) or final SSD
-state and conv tail (SSM and the hybrid's SSD layers, f32) is written
-straight into a preallocated cache, where the reference stacks every
-layer's output of the scan: that saves a full-precision copy of the whole
-cache.
+layout, ready for ``decode_step``.  Each layer's K/V (dense, MoE, the
+hybrid's shared block, the VLM's self blocks and the audio decoder's,
+cast to the cache dtype as it lands), each cross layer's K/V of the memory
+(VLM and audio, the same) or final SSD state and conv tail (SSM and the
+hybrid's SSD layers, f32) is written straight into a preallocated cache,
+where the reference stacks every layer's output of the scan: that saves a
+full-precision copy of the whole cache.  The VLM's batch also holds
+``image_embeds`` (B, n_image_tokens, d), the audio family's ``frames`` (B,
+enc_frames, d).
 """
 from __future__ import annotations
 
@@ -19,25 +22,20 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import attention as attn
-from repro_torch.models import hybrid_lm, mamba_lm, moe_lm, transformer
+from repro_torch.models import (
+    encdec, hybrid_lm, mamba_lm, moe_lm, transformer, vlm,
+)
 from repro_torch.models.common import layer, rms_norm
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import ssm_block
 
 Params = Dict[str, Any]
 
-# families whose prefill waits for a later slice, with the ROADMAP item
-NOT_PORTED = {
-    "vlm": "ROADMAP.md Queue 1 item 4 (audio and VLM)",
-    "audio": "ROADMAP.md Queue 1 item 4 (audio and VLM)",
-}
-
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _FAMILY:
-        where = NOT_PORTED.get(cfg.family, "ROADMAP.md")
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: {where}")
+            f"family {cfg.family!r} ({cfg.arch_id}) is not ported")
 
 
 def _attn_collect(cfg, p, h, *, window=0, use_kernels=False):
@@ -151,8 +149,52 @@ def _prefill_hybrid(cfg, params, batch, cache_len, dtype, use_kernels):
     return transformer.lm_head(cfg, params, h[:, -1:]), cache
 
 
+def _prefill_vlm(cfg, params, batch, cache_len, dtype, use_kernels):
+    """The self blocks' K/V (n_groups, n_self, B, S, KV, D) and each cross
+    block's memory K/V (n_groups, B, n_image_tokens, KV, D), in the cache
+    dtype."""
+    h = transformer.embed_tokens(cfg, params, batch["tokens"])
+    memory = batch["image_embeds"].to(h.dtype)
+    cache = vlm.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    n_groups, n_self = vlm._group_dims(cfg)
+    for g in range(n_groups):
+        pg_self = layer(params["self_blocks"], g)
+        for j in range(n_self):
+            p = layer(pg_self, j)
+            h, k, v = _attn_collect(cfg, p, h, use_kernels=use_kernels)
+            h = _mlp_res(cfg, p, h)
+            _pad_cache(cache["k"][g, j], k)
+            _pad_cache(cache["v"][g, j], v)
+        h, (mk, mv) = vlm._cross_apply(cfg, layer(params["cross_blocks"], g), h,
+                                       memory, use_kernels=use_kernels,
+                                       return_kv=True)
+        cache["mem_k"][g] = mk
+        cache["mem_v"][g] = mv
+    return transformer.lm_head(cfg, params, h[:, -1:]), cache
+
+
+def _prefill_audio(cfg, params, batch, cache_len, dtype, use_kernels):
+    """The decoder's self-attention K/V (L, B, S, KV, D) and each layer's
+    memory K/V (L, B, enc_frames, KV, D), in the cache dtype."""
+    memory = encdec.encode(cfg, params,
+                           batch["frames"].to(params["embed"].dtype),
+                           use_kernels=use_kernels, remat=False)
+    h = encdec.embed_positions(params, batch["tokens"])
+    cache = encdec.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    for i in range(cfg.n_layers):
+        h, (k, v), (mk, mv) = encdec._dec_block(
+            cfg, layer(params["dec_blocks"], i), h, memory, use_kernels,
+            return_kv=True)
+        _pad_cache(cache["k"][i], k)
+        _pad_cache(cache["v"][i], v)
+        cache["mem_k"][i] = mk
+        cache["mem_v"][i] = mv
+    return transformer.lm_head(cfg, params, h[:, -1:]), cache
+
+
 _FAMILY = {"dense": _prefill_dense, "moe": _prefill_moe, "ssm": _prefill_ssm,
-           "hybrid": _prefill_hybrid}
+           "hybrid": _prefill_hybrid, "vlm": _prefill_vlm,
+           "audio": _prefill_audio}
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,

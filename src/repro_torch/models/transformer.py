@@ -34,21 +34,26 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+def block_init(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
+               stack: Tuple[int, ...] = ()) -> Params:
+    """One pre-norm attention + MLP block, leaves stacked ``stack``."""
+    dev = gen.device
+    return {
+        "ln1": torch.ones((*stack, cfg.d_model), dtype=dtype, device=dev),
+        "attn": attn.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, dtype, stack=stack),
+        "ln2": torch.ones((*stack, cfg.d_model), dtype=dtype, device=dev),
+        "mlp": mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                                dtype, stack=stack),
+    }
+
+
 def init(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> Params:
     """Parameters on the generator's device, blocks stacked (n_layers, ...)."""
-    L = (cfg.n_layers,)
-    dev = gen.device
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "blocks": {
-            "ln1": torch.ones((*L, cfg.d_model), dtype=dtype, device=dev),
-            "attn": attn.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.head_dim, dtype, stack=L),
-            "ln2": torch.ones((*L, cfg.d_model), dtype=dtype, device=dev),
-            "mlp": mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                                    dtype, stack=L),
-        },
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        "blocks": block_init(cfg, gen, dtype, stack=(cfg.n_layers,)),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)

@@ -142,6 +142,38 @@ def test_tuned_tile_for_another_head_dim_resolves_to_one_that_fits():
         ops.clear_tuned_blocks()
 
 
+# whisper-medium's encoder, cross and decoder attention and the VLM's self
+# and cross attention: (B, T, S, H, KV, D)
+CROSS_FAMILY_SHAPES = [(8, 1500, 1500, 16, 16, 64), (8, 448, 1500, 16, 16, 64),
+                       (8, 448, 448, 16, 16, 64), (8, 512, 512, 64, 8, 128),
+                       (8, 512, 1601, 64, 8, 128)]
+
+
+@pytest.mark.parametrize("tuned_at", [(2, 512, 512, 16, 16, 64),
+                                      (8, 512, 512, 32, 32, 80)])
+def test_every_swept_tile_resolves_to_one_that_launches_at_the_cross_shapes(tuned_at):
+    """Whatever tile kbench installs at its sweep shape (D = 64) or at
+    gpt-2b's (D = 80), the registry's nearest entry for the audio and VLM
+    shapes, D = 64 and 128, non-causal and cross-shaped, resolves to a tile
+    the forward kernel launches: the winner where it fits, else the
+    default."""
+    from repro_torch.kbench.harness import _flash_grid
+    from repro_torch.kernels import flash_attention as fa
+    try:
+        for tile in _flash_grid(tuned_at):
+            ops.clear_tuned_blocks()
+            ops.set_tuned_blocks("flash_attention", tuned_at, tile)
+            for shape in CROSS_FAMILY_SHAPES:
+                D = shape[-1]
+                for elem in (4, 2):
+                    bq, bk = ops.flash_blocks(shape, elem)
+                    assert fa.tile_fits(D, bq, bk, elem), (tile, shape, elem)
+                    want = tile if fa.tile_fits(D, *tile, elem) else fa.default_blocks(D)
+                    assert (bq, bk) == want
+    finally:
+        ops.clear_tuned_blocks()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_an_explicit_tile_that_cannot_launch_is_refused_before_launching(dtype):
     """(32, 128) at D = 256 needs more shared memory than a block has: the

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax nor the reference package,
-its entry points default to CUDA and raise without a card, each ported
-family (dense, SSM, MoE, hybrid) serves and trains on the CPU when asked,
-and the families it has not ported yet (VLM, audio) say where they come."""
+its entry points default to CUDA and raise without a card, and every family
+(dense, SSM, MoE, hybrid, VLM, audio) serves and trains on the CPU when
+asked; the VLM and audio families train through ``fit(train_step=...,
+state=...)`` with a step that adds their frontend input, and ``fit``
+without one says so."""
 import os
 import subprocess
 import sys
@@ -48,6 +50,8 @@ SSM_SLICE = ["repro_torch.models.ssm", "repro_torch.models.mamba_lm",
 MOE_SLICE = ["repro_torch.models.moe", "repro_torch.models.moe_lm",
              "repro_torch.models.prefill"]
 HYBRID_SLICE = ["repro_torch.models.hybrid_lm"]
+CROSS_SLICE = ["repro_torch.models.encdec", "repro_torch.models.vlm",
+               "repro_torch.models.attention"]
 
 _IMPORT_ONE = """
 import importlib, sys
@@ -96,7 +100,8 @@ CONTROL_PLANE = [
 
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + MOE_SLICE
-                         + HYBRID_SLICE + KBENCH_SLICE + CONTROL_PLANE)
+                         + HYBRID_SLICE + CROSS_SLICE + KBENCH_SLICE
+                         + CONTROL_PLANE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
@@ -178,13 +183,84 @@ def test_generate_takes_injected_params_and_prompt():
     assert (a["tokens"] == b["tokens"]).all()   # greedy: the seed is unused
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-medium"])
-def test_unported_families_name_their_roadmap_item(arch):
-    from repro_torch.api import generate
+def _generate_and_fit_with_modality(arch, tmp_path):
+    """``generate``, then 2 steps of ``fit`` through ``make_train_step`` and
+    a step that adds the family's frontend input to each batch."""
+    from repro_torch.api import HarpConfig, fit, generate
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import modality_inputs
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        generate(arch, reduced=True, batch=1, prompt_len=4, gen_tokens=2,
-                 device="cpu")
+    out = generate(arch, batch=2, prompt_len=40, gen_tokens=4, reduced=True,
+                   device="cpu")
+    assert out["tokens"].shape == (2, 4)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 512)).all()
+    cfg = get_config(arch).reduced()
+    step_fn, model, opt_init = make_train_step(
+        cfg, OptimizerConfig(warmup_steps=2, total_steps=2), device="cpu")
+    gen = generator(model.device, 0)
+    params = model.init(gen)
+    extra = modality_inputs(cfg, 2, gen)
+
+    def train_step(params, opt_state, batch):
+        return step_fn(params, opt_state, {**batch, **extra})
+    res = fit(cfg, HarpConfig(seq_len=48, global_batch=2, trainer=TrainerConfig(
+        total_steps=2, ckpt_every=1000, log_every=1, ckpt_dir=str(tmp_path))),
+        train_step=train_step,
+        state={"params": params, "opt_state": opt_init(params)},
+        device="cpu", log_fn=lambda m: None)
+    assert res["final_step"] == 2
+    assert len(res["history"]) == 2
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in res["history"])
+    return extra
+
+
+def test_generate_and_fit_whisper_on_cpu_when_asked(tmp_path):
+    """The audio family serves and trains through the same entry points."""
+    extra = _generate_and_fit_with_modality("whisper-medium", tmp_path)
+    assert tuple(extra["frames"].shape) == (2, 32, 64)
+
+
+def test_generate_and_fit_llama_vision_on_cpu_when_asked(tmp_path):
+    """The VLM family serves and trains through the same entry points."""
+    extra = _generate_and_fit_with_modality("llama-3.2-vision-90b", tmp_path)
+    assert tuple(extra["image_embeds"].shape) == (2, 16, 64)
+
+
+@pytest.mark.parametrize("arch,key", [("whisper-medium", "frames"),
+                                      ("llama-3.2-vision-90b", "image_embeds")])
+def test_fit_without_modality_inputs_raises(arch, key, tmp_path):
+    """The synthetic pipeline makes tokens only: ``fit`` without a
+    ``train_step`` names the missing input before it builds anything (on a
+    machine without a card it would otherwise raise for the device)."""
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import TrainerConfig
+
+    with pytest.raises(ValueError, match=key):
+        fit(get_config(arch).reduced(),
+            HarpConfig(seq_len=8, global_batch=2, trainer=TrainerConfig(
+                total_steps=1, ckpt_dir=str(tmp_path))))
+    assert not list(tmp_path.iterdir())
+
+
+def test_every_family_is_ported():
+    """No registered arch's family is left for ``check_family`` to refuse;
+    a family outside the port still raises ``NotImplementedError``."""
+    import dataclasses
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models.api import _FAMILY
+    from repro_torch.models.prefill import _FAMILY as PREFILL, check_family
+
+    assert sorted(_FAMILY) == sorted(PREFILL)
+    for arch in list_archs():
+        check_family(get_config(arch))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        check_family(dataclasses.replace(get_config("gpt-2b"), family="diffusion"))
 
 
 def test_generate_and_fit_mamba_on_cpu_when_asked(tmp_path):

@@ -51,6 +51,12 @@ KERNEL_CASES = [
     (1, 100, 40, 2, 1, 80, True, 16),      # fully masked rows (Tq > Tk)
     (8, 512, 512, 32, 32, 112, True, 0),   # zamba2-7b prefill: the wide kernels
     (8, 1024, 1024, 32, 32, 112, True, 0), # zamba2-7b training
+    (8, 1500, 1500, 16, 16, 64, False, 0), # whisper-medium's encoder: a
+                                           # ragged, non-causal last tile
+    (8, 448, 1500, 16, 16, 64, False, 0),  # its cross attention
+    (8, 448, 448, 16, 16, 64, True, 0),    # its decoder
+    (8, 512, 512, 64, 8, 128, True, 0),    # the VLM's self blocks: GQA 8
+    (8, 512, 1601, 64, 8, 128, False, 0),  # its cross blocks
 ]
 
 

@@ -200,6 +200,27 @@ def test_convert_round_trip_is_identity():
     assert jax.tree.map(lambda t: tuple(t.shape), mine) == ref_shapes
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
+def test_convert_round_trip_cross_attention_families(arch):
+    """The audio and VLM trees (nested, stacked two deep for the VLM's self
+    blocks, scalar gates) round-trip bit-equal, and the port's own init
+    has the reference's paths and shapes."""
+    from repro.models import build_model as jbuild
+    from repro_torch.configs import get_config as tget
+    from repro_torch.models import build_model as tbuild
+
+    cfg = tget(arch).reduced()
+    jp = jax.tree.map(np.asarray, jbuild(cfg).init(jax.random.PRNGKey(17)))
+    back = params_to_numpy(params_from_jax(jp))
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    mine = tbuild(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert (jax.tree.map(lambda t: tuple(t.shape), mine)
+            == jax.tree.map(lambda a: a.shape, jp))
+
+
 # ---------------------------------------------------------------------------
 # The rest of the ported surface
 # ---------------------------------------------------------------------------

@@ -4,6 +4,12 @@ meta keys stripped, for full gpt-2b and mamba2-2.7b, inter-op and joint
 search, with measured pricing off, enabled with an empty table, and priced
 from a table that covers the A100 profile and an H100 sub-cluster.  The
 off-state plan also equals the reference's golden pin.
+
+Also a pin of a fault of the reference that the port copies verbatim:
+``tests/test_h1f1b.py::test_h1f1b_never_worse_than_baselines`` draws
+(S, seed) at random in every run, and at S = 5, seed = 46 (the one point
+of its 404 that fails) H-1F1B's makespan is over 5 % above Eager-1F1B's,
+so that test fails on some draws on any tree.
 """
 import json
 import os
@@ -124,3 +130,34 @@ def test_h100_table_moves_the_plan():
     off = _plan("gpt-2b", "off", False, True, port=True)
     measured = _plan("gpt-2b", "table", False, True, port=True)
     assert measured["est_step_time"] != off["est_step_time"]
+
+
+def _h1f1b_makespans(h1f1b, pipesim, S, seed):
+    """The body of ``tests/test_h1f1b.py:72-84`` with one package's
+    ``h1f1b`` and ``pipesim``: the three schedules' counts and makespans."""
+    import random
+    rnd = random.Random(seed)
+    t = [1.0] * S
+    c = [rnd.uniform(0.0, 1.9) for _ in range(S - 1)]
+    B, f, b = 48, [0.4] * S, [0.6] * S
+    counts = {"h1f1b": h1f1b.h1f1b_counts(t, c, B),
+              "classic": h1f1b.classic_1f1b_counts(S, B),
+              "eager": h1f1b.eager_1f1b_counts(S, B)}
+    return {k: (list(v), pipesim.simulate(f, b, c, B, v).makespan)
+            for k, v in counts.items()}
+
+
+def test_h1f1b_counterexample_of_the_reference_is_pinned():
+    """At S = 5, seed = 46 the port's copy gives the reference's counts and
+    makespans exactly, and H-1F1B is worse than Eager-1F1B by more than the
+    5 % that test_h1f1b.py allows (104.95 against 98.88)."""
+    from repro.core import h1f1b as jax_h1f1b, pipesim as jax_pipesim
+    from repro_torch.core import h1f1b, pipesim
+
+    ref = _h1f1b_makespans(jax_h1f1b, jax_pipesim, 5, 46)
+    ours = _h1f1b_makespans(h1f1b, pipesim, 5, 46)
+    assert ours == ref
+    h, eager, classic = (ours[k][1] for k in ("h1f1b", "eager", "classic"))
+    assert h <= classic * 1.001
+    assert h > eager * 1.05
+    assert abs(h - 104.95) < 0.01 and abs(eager - 98.88) < 0.01

@@ -16,6 +16,14 @@ state is f32 whatever the cache dtype, on both sides, so the SSM runs only
 the f32 decode (``CACHE_DTYPES``); the hybrid's bf16 decode casts only its
 K/V.  ``n_layers`` replaces the reduced depth (the hybrid's 5-layer variant
 has a tail of one SSD layer, the reduced config none).
+
+The VLM and audio families also take their stub frontend's input,
+``image_embeds`` / ``frames`` (B, rows, d), drawn with numpy from a seed as
+N(0, 1): unit scale, so the memory moves the logits as much as the tokens
+do (``generate`` draws 0.02 N(0, 1)).  Their caches add each cross layer's
+K/V of that memory.  The VLM's tanh gates start at 0, which would hide its
+cross blocks from every comparison, so both sides run with them at 0.5
+(``open_gates``, on the JAX side before the conversion).
 """
 import dataclasses
 import functools
@@ -31,6 +39,7 @@ from repro.models.prefill import prefill as jax_prefill
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import build_model
+from repro_torch.models.api import MODALITY
 from repro_torch.models.prefill import prefill
 from repro_torch.serve.step import greedy_tokens
 
@@ -63,17 +72,40 @@ def flat(tree, path=""):
     return out
 
 
+def modality(cfg, batch, seed=2):
+    """The family's stub frontend input as numpy f32 N(0, 1), ``{}`` for
+    the token-only families."""
+    if cfg.family not in MODALITY:
+        return {}
+    key, rows = MODALITY[cfg.family]
+    x = np.random.default_rng(seed).standard_normal(
+        (batch, getattr(cfg, rows), cfg.d_model))
+    return {key: x.astype(np.float32)}
+
+
+def open_gates(cfg, params, value=0.5):
+    """The VLM's params with every cross block's ``gate_a`` / ``gate_m`` at
+    ``value``; other families' params as they are."""
+    if cfg.family != "vlm":
+        return params
+    cross = dict(params["cross_blocks"])
+    for g in ("gate_a", "gate_m"):
+        cross[g] = jnp.full_like(cross[g], value)
+    return {**params, "cross_blocks": cross}
+
+
 @functools.lru_cache(maxsize=None)
 def reference(arch, n_layers=None):
     """The JAX side, computed once per arch and returned as numpy."""
     cfg = reduced(jax_config, arch, n_layers)
     model = jax_build(cfg)
-    params = model.init(jax.random.PRNGKey(0))
+    params = open_gates(cfg, model.init(jax.random.PRNGKey(0)))
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, PROMPT))
-    logits, _ = model.forward(params, {"tokens": jnp.asarray(tokens)})
-    last, cache = jax_prefill(cfg, params, {"tokens": jnp.asarray(tokens)},
-                              cache_len=TOTAL, cache_dtype=jnp.float32,
-                              use_pallas=True)
+    feed = {"tokens": jnp.asarray(tokens),
+            **{k: jnp.asarray(v) for k, v in modality(cfg, B).items()}}
+    logits, _ = model.forward(params, feed)
+    last, cache = jax_prefill(cfg, params, feed, cache_len=TOTAL,
+                              cache_dtype=jnp.float32, use_pallas=True)
     step = jax.jit(model.decode_step)
     runs = {}
     for name in CACHE_DTYPES.get(cfg.family, ("float32", "bfloat16")):
@@ -96,10 +128,13 @@ def reference(arch, n_layers=None):
 
 
 def port(arch, n_layers=None):
+    """(cfg, model, params, feed): the reference's params and prompt, and
+    the family's frontend input, as tensors."""
     cfg = reduced(get_config, arch, n_layers)
     params_np, tokens = reference(arch, n_layers)[:2]
-    return (cfg, build_model(cfg, device="cpu"), params_from_jax(params_np),
-            torch.from_numpy(tokens))
+    feed = {"tokens": torch.from_numpy(tokens),
+            **{k: torch.from_numpy(v) for k, v in modality(cfg, B).items()}}
+    return cfg, build_model(cfg, device="cpu"), params_from_jax(params_np), feed
 
 
 def _close(t, ref, tol):
@@ -108,15 +143,15 @@ def _close(t, ref, tol):
 
 
 def check_forward(arch, n_layers=None):
-    cfg, model, params, tokens = port(arch, n_layers)
-    logits, _ = model.forward(params, {"tokens": tokens})
+    cfg, model, params, feed = port(arch, n_layers)
+    logits, _ = model.forward(params, feed)
     assert tuple(logits.shape) == (B, PROMPT, cfg.vocab_size)
     _close(logits, reference(arch, n_layers)[2], TOL)
 
 
 def check_prefill(arch, n_layers=None):
-    cfg, model, params, tokens = port(arch, n_layers)
-    last, cache = prefill(cfg, params, {"tokens": tokens}, cache_len=TOTAL,
+    cfg, model, params, feed = port(arch, n_layers)
+    last, cache = prefill(cfg, params, feed, cache_len=TOTAL,
                           cache_dtype=torch.float32, use_kernels=True)
     ref_last, ref_cache = reference(arch, n_layers)[3:5]
     _close(last, ref_last, TOL)
@@ -142,10 +177,10 @@ def _assert_same_token(tok, ref_tok, ref_logits, tol):
 def check_greedy_decode(arch, cache_dtype, n_layers=None):
     """Greedy decode after prefill; both sides are fed the reference's
     tokens, so a tie that breaks differently does not fork the sequences."""
-    cfg, model, params, tokens = port(arch, n_layers)
+    cfg, model, params, feed = port(arch, n_layers)
     ref_toks, ref_logits = reference(arch, n_layers)[5][cache_dtype]
     tol = TOL if cache_dtype == "float32" else BF16_TOL
-    last, cache = prefill(cfg, params, {"tokens": tokens}, cache_len=TOTAL,
+    last, cache = prefill(cfg, params, feed, cache_len=TOTAL,
                           cache_dtype=getattr(torch, cache_dtype),
                           use_kernels=True)
     _assert_same_token(greedy_tokens(last), ref_toks[0],

@@ -29,6 +29,12 @@ Tolerances, all f32 on both sides, only summation orders differ:
 
 ``n_layers`` replaces the reduced depth (the hybrid's 5-layer variant, whose
 tail holds one SSD layer).
+
+The VLM's and the audio family's batches add their frontend input
+(``torch_slice_parity.modality``, seeded by the step), and the VLM's gates
+are opened to 0.5 on the JAX side before the conversion
+(``torch_slice_parity.open_gates``): at 0 its cross blocks' attention and
+MLP would get zero gradients.
 """
 import functools
 
@@ -50,7 +56,7 @@ from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import (
     batch_to_device, make_train_step, value_and_grad,
 )
-from torch_slice_parity import reduced
+from torch_slice_parity import modality, open_gates, reduced
 
 B, T = 4, 80
 LOSS_RTOL = 1e-5
@@ -68,7 +74,17 @@ LIVE_LEAVES = {"dense": ("blocks.attn.wq", "blocks.attn.wk", "blocks.attn.wv"),
                        "blocks.ssm.dt_bias"),
                "hybrid": ("shared.attn.wq", "shared.attn.wk", "shared.attn.wv",
                           "shared.attn.wo", "adapt_in", "adapt_out",
-                          "groups.ssm.in_proj", "groups.ssm.A_log")}
+                          "groups.ssm.in_proj", "groups.ssm.A_log"),
+               "vlm": ("self_blocks.attn.wq", "self_blocks.attn.wk",
+                       "cross_blocks.xattn.wq", "cross_blocks.xattn.wk",
+                       "cross_blocks.xattn.wv", "cross_blocks.mlp.w_up",
+                       "cross_blocks.gate_a", "cross_blocks.gate_m"),
+               # the memory's gradient reaches the encoder through every
+               # decoder layer's cross attention
+               "audio": ("enc_blocks.attn.wq", "enc_blocks.attn.wk",
+                         "enc_blocks.mlp.w_up", "dec_blocks.attn.wq",
+                         "dec_blocks.xattn.wq", "dec_blocks.xattn.wk",
+                         "dec_blocks.xattn.wv", "pos_embed")}
 
 
 def _leaves(tree, path=()):
@@ -99,14 +115,15 @@ def assert_tree_close(port, ref, *, atol, rtol, norm_rtol=None, what=""):
 
 
 def batch(cfg, step):
-    return jax_make_batch(JaxDataConfig(cfg.vocab_size, T, B, seed=0), step)
+    return {**jax_make_batch(JaxDataConfig(cfg.vocab_size, T, B, seed=0), step),
+            **modality(cfg, B, seed=100 + step)}
 
 
 @functools.lru_cache(maxsize=None)
 def reference_grads(arch, use_pallas, n_layers=None):
     cfg = reduced(jax_config, arch, n_layers)
     model = jax_build(cfg, use_pallas=use_pallas)
-    params = model.init(jax.random.PRNGKey(0))
+    params = open_gates(cfg, model.init(jax.random.PRNGKey(0)))
     b = {k: jnp.asarray(v) for k, v in batch(cfg, 0).items()}
     (loss, metrics), grads = jax.value_and_grad(model.loss, has_aux=True)(params, b)
     tonp = functools.partial(jax.tree.map, np.asarray)
@@ -147,7 +164,7 @@ def reference_training(arch, n_microbatches, n_layers=None):
     cfg = reduced(jax_config, arch, n_layers)
     step_fn, model, opt_init = jax_make_train_step(
         cfg, JaxOptimizerConfig(**OPT), n_microbatches=n_microbatches)
-    params = model.init(jax.random.PRNGKey(0))
+    params = open_gates(cfg, model.init(jax.random.PRNGKey(0)))
     start = jax.tree.map(np.asarray, params)
     state = opt_init(params)
     step_fn = jax.jit(step_fn)
