@@ -29,7 +29,8 @@ each (``{"phase": ...}``):
             tile), cross attention (8, 448, 1500, ...) and decoder (8, 448,
             448, ..., causal), the backward too; the VLM's self (8, 512, 512,
             64, 8, 128, causal) and cross attention (8, 512, 1601, ...,
-            non-causal), the forward only;
+            non-causal), the forward only; the pipeline's microbatch (2,
+            1024, 1024, 32, 32, 80, causal), forward and backward;
   main      ``repro_torch.api.generate("gpt-2b", batch=8, prompt_len=512,
             gen_tokens=32)`` at full width with launch counts reset just
             before and read just after (32 flash launches: one per layer);
@@ -153,6 +154,26 @@ each (``{"phase": ...}``):
             embeddings, with the cross blocks' gates at 0.5 (0 at init,
             where they add nothing); closing them must move the logits by
             more than the tolerance;
+  pipeline  HARP's inter-operator pipeline on full-width gpt-2b:
+            ``make_pipeline_train_step("gpt-2b", n_stages=2,
+            n_microbatches=4)`` (2 stages of 16 layers), batch 8 x 1024
+            (microbatches of 2 x 1024), bf16 activations, the local transport
+            (both stages on the card), 3 steps, launch counts reset just
+            before and read after every step: per step 320 flash forward
+            launches (2 stages x 5 slots x 16 layers, and the slot remat's
+            recompute) and 160 of each backward kernel, at (2, 1024, 1024,
+            32, 32, 80) causal bf16; finite losses, step 1's loss against the
+            single-pod ``model.loss`` on the same params and batch (bf16
+            activations 2e-3, f32 2e-3; near log(vocab) at init, so blind
+            to misrouting, which the contract's gradients catch); step
+            seconds, tokens/s, peak memory;
+  pipeline_contract  at full width, batch 2 x 256 in 2 microbatches, f32,
+            the embedding table rounded to bf16 (which the pipeline's input
+            round trip then leaves exact): the pipeline's loss (1e-5) and
+            every gradient, unstaged, against the single-pod
+            ``value_and_grad(model.loss)`` with the kernels (1e-4 relative
+            per leaf; the embedding's, which comes back through the bf16
+            input, 2**-7), and against the same pipeline on the plain path;
   kernel    also the RMSNorm kernel (``rmsnorm``, K4) against its plain
             version: the reference's cases (f32 atol 1e-6, bf16 2e-2), its
             swept blocks on 256 and 200 rows (2e-5), D = 100 on one row, and
@@ -201,7 +222,8 @@ each (``{"phase": ...}``):
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
             training shape, of gpt-2b and, f32, of granite-moe, zamba2-7b and
-            whisper-medium, the forward at the VLM's two shapes,
+            whisper-medium, the forward at the VLM's two shapes, all
+            three at the pipeline's microbatch in bf16,
             K5 at mamba2's and zamba2-7b's prefill and training shapes, K4
             at the full-width hidden states) against its plain version, a
             PyTorch call that computes the same
@@ -222,10 +244,12 @@ granite-moe's, with the flash kernels' numbers at its shapes under
 ``granite_prefill`` / ``granite_train``; ``launches_hybrid`` and
 ``launches_train_hybrid`` zamba2-7b's, with K1-K3's and K5's numbers at its
 shapes under ``zamba_prefill`` / ``zamba_train``; ``launches_audio``,
-``launches_train_audio`` and ``launches_vlm`` the new phases', with K1's
-numbers under ``whisper_enc`` / ``whisper_cross`` / ``whisper_dec`` /
-``vlm_self`` / ``vlm_cross`` and K2's and K3's under the three whisper
-ones), the ``nvidia-smi`` line,
+``launches_train_audio`` and ``launches_vlm`` the audio and VLM phases',
+with K1's numbers under ``whisper_enc`` / ``whisper_cross`` /
+``whisper_dec`` / ``vlm_self`` / ``vlm_cross`` and K2's and K3's under the
+three whisper ones; ``launches_pipeline`` the ``pipeline`` phase's, with
+K1-K3's bf16 numbers at its microbatch under ``pipeline``), the
+``nvidia-smi`` line,
 and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line; without a card it exits 2 and prints no result.
@@ -383,12 +407,33 @@ VLM_CASES = (VLM_SELF, VLM_CROSS)
 # the VLM's tanh gates start at 0, where its cross blocks add nothing and a
 # contract cannot see them: its contract runs with them at this value
 VLM_GATE = 0.5
+# HARP's pipeline on full-width gpt-2b: 2 stages of 16 layers, 4 microbatches
+# of 2 x 1024 tokens, bf16 activations (the reference's default act dtype)
+PIPE_STAGES, PIPE_MB, PIPE_BT = 2, 4, (8, 1024)
+PIPE_TRAIN = (2, 1024, 1024, 32, 32, 80, True, 0)   # K1-K3 per microbatch
+# step 1 of the pipeline against the single-pod loss on the same params and
+# batch: with the activations in bf16 as the stages run them (the same
+# operations on other GEMM shapes: a microbatch of 2 rows against 8), and in
+# f32 (bf16 rounding through 32 layers; 2.07e-4 on an H100).  At init the
+# loss is near log(vocab) for any routing, so these gates cannot see a
+# microbatch or its labels misrouted: pipeline_contract's per-leaf
+# gradients guard the routing
+PIPE_STEP1_TOL = 2e-3
+PIPE_STEP1_F32_TOL = 2e-3
+# the f32 contract (2 x 256, 2 microbatches): loss and each gradient leaf by
+# relative norm, pipeline against single pod and kernels against plain, as
+# TRAIN_CONTRACT_TOL; the embedding's gradient comes back through the
+# pipeline's bf16 input: 2**-7 of its norm
+PIPE_LOSS_TOL = 1e-5
+PIPE_CONTRACT_TOL = 1e-4
+PIPE_EMBED_TOL = 2 ** -7
 # the kernels line's names of this slice's flash shapes
 NEW_SHAPES = {"whisper_enc": WHISPER_ENC, "whisper_cross": WHISPER_CROSS,
               "whisper_dec": WHISPER_DEC, "vlm_self": VLM_SELF,
               "vlm_cross": VLM_CROSS}
 # the flash shapes whose backward kernels are timed
-TRAIN_CASES = (GPT2B_TRAIN, GRANITE_TRAIN, ZAMBA_TRAIN) + WHISPER_CASES
+TRAIN_CASES = (GPT2B_TRAIN, GRANITE_TRAIN, ZAMBA_TRAIN) + WHISPER_CASES + (
+    PIPE_TRAIN,)
 EXTRA_CASES = [
     GPT2B_PREFILL,                         # the serving path's shape
     (2, 512, 512, 8, 1, 256, True, 0),     # gemma-2b: MQA, D = 256
@@ -560,7 +605,7 @@ def check_kernel_cases(gen):
     failures, errs, worst = [], {}, (0.0, None)
     for case in FLASH_CASES + EXTRA_CASES + [
             GPT2B_TRAIN, GRANITE_PREFILL, GRANITE_TRAIN, ZAMBA_PREFILL,
-            ZAMBA_TRAIN, *WHISPER_CASES, *VLM_CASES]:
+            ZAMBA_TRAIN, *WHISPER_CASES, *VLM_CASES, PIPE_TRAIN]:
         causal, window = case[6], case[7]
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(case, dtype, gen)
@@ -585,8 +630,7 @@ def check_kernel_cases(gen):
                  share_of_tol=share, neg_inf_rows_match=same_inf, tol=tol, ok=ok)
             if not ok:
                 failures.append((case, dtype))
-            if dtype == "float32":
-                errs[case] = max(err_out, err_lse)
+            errs[case if dtype == "float32" else (case, dtype)] = max(err_out, err_lse)
             if dtype == "float32" and share > worst[0]:
                 worst = (share, case)
             del q, k, v, out, lse, ro, rl
@@ -607,7 +651,8 @@ def check_bwd_kernel_cases(gen):
 
     failures, errs = [], {}
     for case in FLASH_CASES + EXTRA_CASES + [GPT2B_TRAIN, GRANITE_TRAIN,
-                                             ZAMBA_TRAIN, *WHISPER_CASES]:
+                                             ZAMBA_TRAIN, *WHISPER_CASES,
+                                             PIPE_TRAIN]:
         causal, window = case[6], case[7]
         kw = dict(causal=causal, window=window)
         for dtype in ("float32", "bfloat16"):
@@ -638,8 +683,8 @@ def check_bwd_kernel_cases(gen):
                      atol=atol, rtol=rtol, ok=ok)
                 if not ok:
                     failures.append((kernel, case, dtype))
-                if dtype == "float32":
-                    errs[(kernel, case)] = max(err.values())
+                errs[(kernel, case) if dtype == "float32"
+                     else (kernel, case, dtype)] = max(err.values())
             del q, k, v, do, out, lse, dq, dk, dv, rdq, rdk, rdv
     if failures:
         raise SystemExit(f"backward kernels disagree with their plain "
@@ -868,6 +913,7 @@ def run_timing(gen):
     runs += [(c, "float32") for c in (GRANITE_PREFILL, GRANITE_TRAIN,
                                       ZAMBA_PREFILL, ZAMBA_TRAIN,
                                       *WHISPER_CASES, *VLM_CASES)]
+    runs += [(PIPE_TRAIN, "bfloat16")]
     for case, dtype in runs:
         kw = dict(causal=case[6], window=case[7])
         # SDPA takes GQA's shared KV heads as they are (enable_gqa)
@@ -2173,6 +2219,195 @@ def run_train_contract_audio():
 
 
 # ---------------------------------------------------------------------------
+# HARP's inter-operator pipeline: full-width gpt-2b in two stages
+# ---------------------------------------------------------------------------
+
+
+def pipeline_launches(cfg, stages, n_mb, steps=1) -> dict:
+    """Per step, every stage runs its layers in every one of the n_mb + S - 1
+    slots (the warm-up and drain slots too, masked by multiplication, as in
+    the reference): K1 once in the forward and once in the slot's remat
+    recompute, K2 and K3 once in the backward."""
+    per = (n_mb + stages - 1) * cfg.n_layers
+    return {"flash_attention_fwd": 2 * per * steps,
+            "flash_attention_bwd_dq": per * steps,
+            "flash_attention_bwd_dkv": per * steps,
+            "ssd_intra": 0, "rmsnorm": 0}
+
+
+@contextlib.contextmanager
+def act_dtype(dtype):
+    """The single-pod model's activations in ``dtype`` (cast at the
+    embedding), as the pipeline's ``act_dtype`` runs them."""
+    from repro_torch.models import common
+    common.set_act_dtype(dtype)
+    try:
+        yield
+    finally:
+        common.set_act_dtype(None)
+
+
+def run_pipeline(train_losses):
+    """``make_pipeline_train_step("gpt-2b")`` at full width: 2 stages of 16
+    layers, 4 microbatches of 2 x 1024, bf16 activations, the local
+    transport, 3 steps, with the AdamW that ``fit`` builds for 3 steps, from
+    ``fit``'s init and batches: ``train_losses``, the ``train`` phase's (f32
+    activations, one batch of 8), go on the line beside its losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.parallel.staging import unstage
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import batch_to_device, make_pipeline_train_step
+
+    cfg = get_config("gpt-2b")
+    (B, T), S, n_mb, seed = PIPE_BT, PIPE_STAGES, PIPE_MB, 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, st, opt_init, specs = make_pipeline_train_step(
+        cfg, OptimizerConfig(warmup_steps=min(20, TRAIN_STEPS),
+                             total_steps=TRAIN_STEPS), n_stages=S,
+        n_microbatches=n_mb, act_dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+    staged, shared = st.staged, st.shared
+    dev = shared["embed"].device
+    batches = [batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, B, seed), i),
+                               dev) for i in range(TRAIN_STEPS)]
+    # the single-pod loss of step 1's params and batch (before the update,
+    # which is in place), in bf16 activations as the stages run and in f32
+    params = unstage(cfg, staged, shared)
+    with torch.no_grad():
+        with act_dtype(torch.bfloat16):
+            single_bf16 = build_model(cfg).loss(params, batches[0])[0].item()
+        single_f32 = build_model(cfg).loss(params, batches[0])[0].item()
+    del params
+    free_memory()
+    opt = opt_init({"staged": staged, "shared": shared})
+    mem_state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    hist, per_step = [], []
+    for i in range(TRAIN_STEPS):
+        before = dict(LAUNCHES)
+        t1 = time.perf_counter()
+        staged, shared, opt, m = step(staged, shared, st.consts, opt, batches[i])
+        torch.cuda.synchronize()
+        hist.append({"step": i + 1, "time_s": time.perf_counter() - t1,
+                     **{k: v.item() for k, v in m.items()}})
+        per_step.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = pipeline_launches(cfg, S, n_mb)
+    tok_s = 2 * B * T / (hist[1]["time_s"] + hist[2]["time_s"])
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    rel = abs(hist[0]["loss"] - single_bf16) / abs(single_bf16)
+    rel_f32 = abs(hist[0]["loss"] - single_f32) / abs(single_f32)
+    emit("pipeline", arch="gpt-2b", stages=S, layers_per_stage=cfg.n_layers // S,
+         microbatches=n_mb, batch=B, seq_len=T, act_dtype="bfloat16",
+         transport="local", steps=hist, launches=launches,
+         launches_per_step=per_step, launches_expected_per_step=want,
+         flash_shape=list(PIPE_TRAIN), tokens_per_s_steps_2_3=tok_s,
+         build_s=build_s, peak_mem_gb=peak_gb, mem_state_gb=mem_state_gb,
+         step1_loss=hist[0]["loss"], single_pod_loss_bf16=single_bf16,
+         single_pod_loss_f32=single_f32, step1_rel_err_bf16=rel,
+         step1_rel_err_f32=rel_f32, step1_tol_bf16=PIPE_STEP1_TOL,
+         step1_tol_f32=PIPE_STEP1_F32_TOL, finite=finite,
+         train_phase_losses_f32=train_losses,
+         consts_specs=specs["consts"])
+    del staged, shared, opt, st, step, batches
+    free_memory()
+    if not finite:
+        raise SystemExit("the pipeline did not give finite losses")
+    if any(ps != want for ps in per_step):
+        raise SystemExit(f"pipeline launches per step {per_step}, expected {want}")
+    if rel > PIPE_STEP1_TOL or rel_f32 > PIPE_STEP1_F32_TOL:
+        raise SystemExit(f"pipeline step 1 loss {hist[0]['loss']} vs the single "
+                         f"pod's {single_bf16} (bf16) / {single_f32} (f32)")
+    return launches, {"tokens_per_s": tok_s, "peak_mem_gb": peak_gb,
+                      "step_s": [h["time_s"] for h in hist]}
+
+
+def run_pipeline_contract():
+    """At full width, batch 2 x 256 in 2 microbatches, f32: the pipeline's
+    loss and every gradient (unstaged to the model's layout) against the
+    single-pod ``value_and_grad(model.loss)``, both with the kernels, and the
+    pipeline with the kernels against the pipeline on the plain path.  The
+    embedding table is rounded to bf16 first: the pipeline's ``make_io``
+    rounds its input to bf16 (as the reference's does), which a table bf16
+    holds makes exact; the embedding's gradient still comes back through
+    bf16 (PIPE_EMBED_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import generator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.parallel.pipeline import pipeline_loss_fn
+    from repro_torch.parallel.staging import build_staging, unstage
+    from repro_torch.train.step import batch_to_device, value_and_grad
+
+    cfg = get_config("gpt-2b")
+    B, T, S, n_mb = 2, 256, PIPE_STAGES, 2
+    model = build_model(cfg)
+    params = model.init(generator(model.device, 4))
+    params["embed"].copy_(params["embed"].bfloat16().float())
+    batch = batch_to_device(make_batch(DataConfig(cfg.vocab_size, T, B, 4), 0),
+                            model.device)
+    loss_s, _, g_s = value_and_grad(model.loss, params, batch)
+
+    def pipeline_grads(use_kernels):
+        st = build_staging(cfg, S, params, act_dtype=torch.float32,
+                           use_kernels=use_kernels)
+        loss_fn = pipeline_loss_fn(st, n_mb)
+        reset_launches()
+        loss, _, g = value_and_grad(
+            lambda t, b: loss_fn(t["staged"], t["shared"], st.consts, b),
+            {"staged": st.staged, "shared": st.shared}, batch)
+        return loss, unstage(cfg, g["staged"], g["shared"]), dict(LAUNCHES)
+
+    def rel_errs(got, want):
+        return {".".join(path): ((a - _get(want, path)).norm()
+                                 / _get(want, path).norm()).item()
+                for path, a in _leaves(got)}
+
+    loss_k, g_k, launches_k = pipeline_grads(True)
+    vs_single = rel_errs(g_k, g_s)
+    del g_s
+    free_memory()
+    loss_p, g_p, launches_p = pipeline_grads(False)
+    vs_plain = rel_errs(g_k, g_p)
+    finite = all(bool(torch.isfinite(a).all()) for _, a in _leaves(g_k))
+    del g_k, g_p, params
+    free_memory()
+    worst_single = max(v for k, v in vs_single.items() if k != "embed")
+    worst_plain = max(vs_plain.values())
+    loss_rel = abs(loss_k.item() - loss_s.item()) / loss_s.item()
+    loss_rel_plain = abs(loss_k.item() - loss_p.item()) / loss_p.item()
+    want = pipeline_launches(cfg, S, n_mb)
+    emit("pipeline_contract", arch="gpt-2b", stages=S, microbatches=n_mb,
+         batch=B, seq_len=T, act_dtype="float32",
+         loss_pipeline=loss_k.item(), loss_single_pod=loss_s.item(),
+         loss_pipeline_plain=loss_p.item(), loss_rel_err=loss_rel,
+         loss_rel_err_plain=loss_rel_plain, loss_tol=PIPE_LOSS_TOL,
+         rel_grad_err_vs_single_pod=vs_single,
+         rel_grad_err_vs_plain_pipeline=vs_plain,
+         max_rel_grad_err_vs_single_pod=worst_single,
+         embed_rel_grad_err_vs_single_pod=vs_single["embed"],
+         max_rel_grad_err_vs_plain_pipeline=worst_plain,
+         tol=PIPE_CONTRACT_TOL, embed_tol=PIPE_EMBED_TOL, finite=finite,
+         launches_kernels=launches_k, launches_plain=launches_p,
+         launches_expected=want, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if (not finite or loss_rel > PIPE_LOSS_TOL or loss_rel_plain > PIPE_LOSS_TOL
+            or worst_single > PIPE_CONTRACT_TOL or worst_plain > PIPE_CONTRACT_TOL
+            or vs_single["embed"] > PIPE_EMBED_TOL):
+        raise SystemExit("pipeline contract failed at full width")
+    if launches_k != want or any(launches_p.values()):
+        raise SystemExit(f"pipeline contract launches {launches_k} / "
+                         f"{launches_p}, expected {want} / none")
+
+
+# ---------------------------------------------------------------------------
 # K4 (RMSNorm), kbench on the card and the planner priced from its table
 # ---------------------------------------------------------------------------
 
@@ -2726,6 +2961,10 @@ def main() -> int:
     free_memory()
     run_contract_cross("contract_vlm", vlm_config())
     free_memory()
+    pipe_launches, _ = run_pipeline(train_summary["losses"])
+    free_memory()
+    run_pipeline_contract()
+    free_memory()
     table, fp, kbench_launches = run_kbench()
     run_plan(table, fp)
     compile_launches = run_compile(table, fp, train_launches, train_summary)
@@ -2747,6 +2986,17 @@ def main() -> int:
         """A flash kernel at another arch's shape: its f32 numbers there."""
         r = rows[(kernel, case, "float32")]
         return {"shape": list(case), "max_abs_err": err,
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
+    def pipeline_at(kernel):
+        """A flash kernel at the pipeline's microbatch shape, in bf16."""
+        r = rows[(kernel, PIPE_TRAIN, "bfloat16")]
+        err = (fwd_errs[(PIPE_TRAIN, "bfloat16")] if kernel == "flash_attention_fwd"
+               else bwd_err[(kernel, PIPE_TRAIN, "bfloat16")])
+        return {"shape": list(PIPE_TRAIN), "dtype": "bfloat16", "max_abs_err": err,
+                "tol": TOL["bfloat16"] if kernel == "flash_attention_fwd"
+                else list(GRAD_TOL["bfloat16"]),
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")}}
 
@@ -2779,6 +3029,8 @@ def main() -> int:
               launches_audio=audio_serve_launches["flash_attention_fwd"],
               launches_train_audio=audio_train_launches["flash_attention_fwd"],
               launches_vlm=vlm_serve_launches["flash_attention_fwd"],
+              launches_pipeline=pipe_launches["flash_attention_fwd"],
+              pipeline=pipeline_at("flash_attention_fwd"),
               **{name: at_shape("flash_attention_fwd", case, fwd_errs[case])
                  for name, case in NEW_SHAPES.items()},
               train_ms=rows[("flash_attention_fwd", GPT2B_TRAIN, "float32")]["ms"],
@@ -2804,6 +3056,8 @@ def main() -> int:
               launches_audio=audio_serve_launches["flash_attention_bwd_dq"],
               launches_train_audio=audio_train_launches["flash_attention_bwd_dq"],
               launches_vlm=vlm_serve_launches["flash_attention_bwd_dq"],
+              launches_pipeline=pipe_launches["flash_attention_bwd_dq"],
+              pipeline=pipeline_at("flash_attention_bwd_dq"),
               **{name: at_shape("flash_attention_bwd_dq", case,
                                 bwd_err[("flash_attention_bwd_dq", case)])
                  for name, case in NEW_SHAPES.items() if case in TRAIN_CASES}),
@@ -2824,6 +3078,8 @@ def main() -> int:
               launches_audio=audio_serve_launches["flash_attention_bwd_dkv"],
               launches_train_audio=audio_train_launches["flash_attention_bwd_dkv"],
               launches_vlm=vlm_serve_launches["flash_attention_bwd_dkv"],
+              launches_pipeline=pipe_launches["flash_attention_bwd_dkv"],
+              pipeline=pipeline_at("flash_attention_bwd_dkv"),
               **{name: at_shape("flash_attention_bwd_dkv", case,
                                 bwd_err[("flash_attention_bwd_dkv", case)])
                  for name, case in NEW_SHAPES.items() if case in TRAIN_CASES}),
@@ -2871,6 +3127,7 @@ def main() -> int:
                            "main_audio": audio_serve_launches["rmsnorm"],
                            "train_audio": audio_train_launches["rmsnorm"],
                            "main_vlm": vlm_serve_launches["rmsnorm"],
+                           "pipeline": pipe_launches["rmsnorm"],
                            "compile": compile_launches["rmsnorm"]},
          "launches_cli": cli_launches["rmsnorm"],
          "wide_shape": list(RMS_WIDE[1]),

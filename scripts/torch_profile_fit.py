@@ -77,7 +77,7 @@ def kernel_table(prof, top: int):
               "device_ms": device_time_us(e) / 1e3} for e in rows])
 
 
-GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma")
+GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet")
 PORT_MARKS = ("flash_fwd_kernel", "flash_bwd_", "ssd_intra_kernel",
               "rmsnorm_held_kernel", "rmsnorm_two_pass_kernel")
 

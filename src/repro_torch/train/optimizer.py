@@ -95,11 +95,13 @@ def make_adamw(cfg: OptimizerConfig):
                         tree_map(zeros, params), tree_map(zeros, params), master)
 
     @torch.no_grad()
-    def update(grads, state: OptState, params
+    def update(grads, state: OptState, params, grad_norm=None
                ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
-        """Consumes ``grads`` (their f32 leaves are scaled in place)."""
+        """Consumes ``grads`` (their f32 leaves are scaled in place).
+        ``grad_norm`` replaces ``global_norm(grads)`` for clipping where
+        ``grads`` is one part of a larger tree (a pipeline stage's)."""
         step = state.step + 1
-        gn = global_norm(grads)
+        gn = global_norm(grads) if grad_norm is None else grad_norm
         scale = (torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
                  if cfg.grad_clip else None)
         lr = lr_schedule(cfg, state.step)

@@ -1,8 +1,20 @@
-"""The single-GPU train step.
+"""Train steps for both execution modes.
 
-Counterpart of ``repro/train/step.py:make_train_step`` (single pod).  The
-multi-pod ``make_pipeline_train_step`` comes with the multi-GPU slice
-(ROADMAP.md, Queue 1 item 6).
+Counterpart of ``repro/train/step.py``:
+
+``make_train_step``          — single pod: one GPU, grad-accumulated
+                               microbatching.
+``make_pipeline_train_step`` — multi-pod: the paper's design, a microbatch
+                               pipeline over stages (``parallel/pipeline.py``)
+                               whose stages run in one process
+                               (``LocalTransport``) or one per rank of a
+                               ``torch.distributed`` group
+                               (``DistributedTransport``).
+
+The reference's device shardings wait for the device-mesh slice (ROADMAP.md,
+Queue 1 item 5); ``pipeline_shardings`` returns its spec trees as host
+data.  Its ``abstract=True`` (dry-run) staging waits for the launcher
+(item 7).
 """
 from __future__ import annotations
 
@@ -12,8 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, generator
 from repro_torch.models import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.pipeline import LocalTransport, pipeline_loss_fn
+from repro_torch.parallel.staging import build_staging
 from repro_torch.train.optimizer import (
     OptimizerConfig, make_optimizer, tree_leaves, tree_map, tree_unflatten,
 )
@@ -91,3 +106,81 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
         return params, opt_state, {"total_loss": loss, **metrics, **om}
 
     return train_step, model, opt_init
+
+
+# ---------------------------------------------------------------------------
+# multi-pod (pipeline over stages)
+# ---------------------------------------------------------------------------
+
+
+def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
+                             n_stages: int, n_microbatches: int,
+                             param_dtype=torch.float32,
+                             act_dtype=torch.bfloat16,
+                             params: Any = None, use_kernels: bool = True,
+                             device: DeviceLike = None, transport=None):
+    """Returns (train_step, staging, opt_init, shardings).
+
+    train_step(staged, shared, consts, opt_state, batch) -> (staged, shared,
+    opt_state, metrics) takes the gradient of the pipeline's loss over
+    ``{"staged", "shared"}`` and applies AdamW to that tree, in place.
+    ``transport`` of ``None`` is a
+    :class:`~repro_torch.parallel.pipeline.LocalTransport`.  ``params`` are
+    in the model's layout, on any device (the host's memory, say); the
+    staging's trees are placed on the model's device.  With the local
+    transport ``params=None`` means ``model.init`` from a generator seeded 0
+    on that device.  With a ``DistributedTransport`` the caller passes
+    ``params``, and only this rank's stage of ``staged`` and ``consts`` (a
+    leading dim of 1, copied) and the shared trees reach the device: a
+    rank that drew the whole model there would need the memory that a
+    pipeline exists to split."""
+    model = build_model(cfg, use_kernels=use_kernels, param_dtype=param_dtype,
+                        device=device)
+    dev = model.device
+    transport = LocalTransport() if transport is None else transport
+    stages = transport.stage_ids(n_stages)
+    lo, n = stages[0], len(stages)
+    if params is None:
+        if n < n_stages:
+            raise ValueError(
+                f"a rank holding {n} of {n_stages} stages takes the model's "
+                "params from the caller (on the host, say): drawing them "
+                "here would put the whole model on its device")
+        params = model.init(generator(dev, 0))
+    staging = build_staging(cfg, n_stages, params, act_dtype=act_dtype,
+                            use_kernels=use_kernels)
+    del params
+    def place(x):
+        return x[lo:lo + n].to(dev, copy=True) if n < n_stages else x.to(dev)
+
+    staging.staged = tree_map(place, staging.staged)
+    staging.consts = tree_map(place, staging.consts)
+    staging.shared = tree_map(lambda x: x.to(dev), staging.shared)
+
+    opt_init, opt_update = make_optimizer(opt_cfg)
+    loss_fn = pipeline_loss_fn(staging, n_microbatches, transport)
+
+    def train_step(staged, shared, consts, opt_state, batch):
+        batch = batch_to_device(batch, model.device)
+        tree = {"staged": staged, "shared": shared}
+        loss, metrics, grads = value_and_grad(
+            lambda t, b: loss_fn(t["staged"], t["shared"], consts, b), tree, batch)
+        transport.sum_shared_grads(grads["shared"])
+        tree, opt_state, om = opt_update(grads, opt_state, tree,
+                                         grad_norm=transport.grad_norm(grads))
+        return tree["staged"], tree["shared"], opt_state, \
+            {"total_loss": loss, **metrics, **om}
+
+    return train_step, staging, opt_init, pipeline_shardings(staging)
+
+
+def pipeline_shardings(staging) -> Dict[str, Any]:
+    """Spec trees (tuples of mesh-axis names and ``None``) of the staging's
+    three parameter trees: stage dim on ``pod`` for ``staged`` and
+    ``consts``, the single-pod rules for ``shared``."""
+    return {
+        "staged": shd.staged_param_pspecs(staging.staged),
+        "shared": shd.param_pspecs(staging.shared),
+        "consts": tree_map(lambda x: ("pod", *([None] * (x.dim() - 1))),
+                           staging.consts),
+    }

@@ -97,11 +97,12 @@ CONTROL_PLANE = [
     "repro_torch.api.artifacts", "repro_torch.api.facade",
     "repro_torch.api.cli",
 ]
+PIPELINE_SLICE = ["repro_torch.parallel.staging", "repro_torch.parallel.pipeline"]
 
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + MOE_SLICE
                          + HYBRID_SLICE + CROSS_SLICE + KBENCH_SLICE
-                         + CONTROL_PLANE)
+                         + CONTROL_PLANE + PIPELINE_SLICE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
@@ -327,6 +328,18 @@ def test_generate_and_fit_zamba2_on_cpu_when_asked(tmp_path):
         assert len(res["history"]) == 2
         assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
                    for h in res["history"])
+
+
+def test_pipeline_train_step_defaults_to_cuda_and_raises_without_it():
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import make_pipeline_train_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pipeline_train_step(get_config("gpt-2b").reduced(), OptimizerConfig(),
+                                 n_stages=2, n_microbatches=2)
 
 
 def _cli(*args):

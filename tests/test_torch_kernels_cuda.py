@@ -644,3 +644,52 @@ def test_kbench_collects_rmsnorm_on_the_card(hopper):
     (e,) = t.entries
     assert e.device == f"cuda:{torch.cuda.get_device_name(0)}"
     assert e.median_s > 0 and e.shape == (256, 128) and e.blocks == (128,)
+
+
+# A reduced gpt-2b pipeline (2 stages of 2 layers, 2 microbatches) with the
+# kernels against the same pipeline on the plain path.  f32: the kernels'
+# 3xTF32 products keep f32 accuracy, so the loss to 1e-5 and each gradient
+# leaf to 1e-4 of its norm; bf16: each attention output differs by up to a
+# bf16 ulp from the plain path's, so the loss to 1e-2 and each leaf to 5e-2.
+PIPE_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 5e-2)}
+
+
+@pytest.mark.cuda_sm90
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pipeline_with_kernels_matches_plain_pipeline(hopper, dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.parallel.pipeline import pipeline_loss_fn
+    from repro_torch.parallel.staging import build_staging
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.step import value_and_grad
+
+    cfg = get_config("gpt-2b").reduced()
+    S, n_mb, B, T = 2, 2, 4, 128
+    params = build_model(cfg, device=hopper).init(generator(hopper, 0))
+    gen = generator(hopper, 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                              device=hopper) for k in ("tokens", "labels")}
+    runs = {}
+    for use_kernels in (True, False):
+        st = build_staging(cfg, S, params, act_dtype=getattr(torch, dtype),
+                           use_kernels=use_kernels)
+        loss_fn = pipeline_loss_fn(st, n_mb)
+        reset_launches()
+        loss, _, grads = value_and_grad(
+            lambda t, b: loss_fn(t["staged"], t["shared"], st.consts, b),
+            {"staged": st.staged, "shared": st.shared}, batch)
+        torch.cuda.synchronize()
+        runs[use_kernels] = (loss, tree_leaves(grads), dict(LAUNCHES))
+    slots_layers = S * (n_mb + S - 1) * cfg.n_layers // S
+    assert runs[True][2]["flash_attention_fwd"] == 2 * slots_layers
+    assert runs[True][2]["flash_attention_bwd_dq"] == slots_layers
+    assert runs[True][2]["flash_attention_bwd_dkv"] == slots_layers
+    assert not any(runs[False][2].values())
+    loss_rtol, norm_rtol = PIPE_TOL[dtype]
+    (lk, gk, _), (lp, gp, _) = runs[True], runs[False]
+    assert bool(torch.isfinite(lk)) and abs(lk - lp).item() <= loss_rtol * abs(lp).item()
+    for a, b in zip(gk, gp):
+        assert ((a - b).norm() / b.norm()).item() <= norm_rtol
