@@ -44,7 +44,8 @@ each (``{"phase": ...}``):
             launches, the remat recompute included, and 32 of each backward
             kernel); finite losses, step 1's loss against the plain path's
             on the same params and batch, and the checkpoint restored
-            bit-equal;
+            bit-equal (the host tree is kept for the ``mesh`` phase and the
+            file deleted);
   train_contract  at full width, batch 1 x 256: every gradient of ``loss``
             with the kernels against the same with plain attention;
   kernel    also the SSD intra-chunk kernel (``ssd_intra``, K5) against its
@@ -218,7 +219,32 @@ each (``{"phase": ...}``):
             priced from the table in memory at the same settings), ``kbench
             collect --ops rmsnorm`` on the card (K4's launches grow), and
             ``train --plan <mamba2-2.7b plan> --smoke --steps 2`` on the card
-            (K5 launches);
+            (K5 launches); then the deprecated launchers in fresh
+            interpreters, ``python -m repro_torch.launch.train --arch gpt-2b
+            --smoke --steps 2`` and ``python -m repro_torch.launch.serve
+            --arch gpt-2b --smoke``, each exiting 0 with its deprecation
+            warning and its result line;
+  mesh      HARP's device meshes: a one-rank NCCL process group on
+            ``cuda:0`` (an in-process ``HashStore``, no network), ``api.compile``
+            of gpt-2b on one H100 (1 node x 1 card) and
+            ``Executable.stage_mesh(0)``: a 1 x 1 ``("data", "model")``
+            ``DeviceMesh`` on cuda; ``stage_mesh`` of the H100 stage of the
+            H100 fleet's plan (1 x 2) raises ``ValueError`` for want of a
+            second rank.  The ``train`` phase's step-3 checkpoint of
+            full-width gpt-2b, as that phase restored it on the host (read
+            from disk once, held there until now), placed by ``ckpt.reshard`` onto ``train_shardings`` (params and
+            AdamW moments as DTensors: reshard seconds, placements by
+            kind, bytes on the card, each local shape against
+            ``shard_shape``), then ``fit`` resumed for step 4 on the DTensors'
+            local tensors (detached, the same storage); then the same step
+            from the restored tree placed with ``torch.device("cuda")``
+            leaves.  Gates: the two step-4 losses and grad norms bit-equal,
+            finite, exactly 64 K1 / 32 K2 / 32 K3 / 0 K4 / 0 K5 launches in
+            each resumed step (counts reset just before each), and
+            ``compress_tree`` of the embedding and layer 0's slices, two
+            error-feedback steps, bit-equal on the card and on the CPU with
+            the wire bytes ``comm.selector.compressed_wire_bytes`` prices.
+            The group is destroyed at the end of the phase;
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
             training shape, of gpt-2b and, f32, of granite-moe, zamba2-7b and
@@ -237,7 +263,8 @@ each (``{"phase": ...}``):
             with the CUDA kernels that one library call runs (one
             ``torch.profiler`` pass).
 
-Then the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
+Then a ``total`` line (the script's seconds so far, the build included),
+the ``kernels`` line (K4's launches are the ``kbench`` phase's; the
 model phases assert 0; ``launches_compile`` and ``launches_cli`` are the
 two control-plane phases', ``launches_moe`` and ``launches_train_moe``
 granite-moe's, with the flash kernels' numbers at its shapes under
@@ -247,7 +274,8 @@ shapes under ``zamba_prefill`` / ``zamba_train``; ``launches_audio``,
 ``launches_train_audio`` and ``launches_vlm`` the audio and VLM phases',
 with K1's numbers under ``whisper_enc`` / ``whisper_cross`` /
 ``whisper_dec`` / ``vlm_self`` / ``vlm_cross`` and K2's and K3's under the
-three whisper ones; ``launches_pipeline`` the ``pipeline`` phase's, with
+three whisper ones; ``launches_mesh`` the ``mesh`` phase's first resumed
+step; ``launches_pipeline`` the ``pipeline`` phase's, with
 K1-K3's bf16 numbers at its microbatch under ``pipeline``), the
 ``nvidia-smi`` line,
 and last
@@ -256,6 +284,7 @@ last line; without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -751,8 +780,11 @@ def run_contract():
         raise SystemExit("serving contract failed at full width")
 
 
-def run_train():
-    """The training main path at full width, through ``api.fit``."""
+def run_train(ckpt_dir):
+    """The training main path at full width, through ``api.fit``.  Returns
+    (launches, summary, restored): ``restored`` is the step-3 checkpoint as
+    ``ckpt.restore`` gave it (step, host tree), which the ``mesh`` phase
+    places and resumes from."""
     from repro_torch.api import HarpConfig, fit
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config
@@ -778,40 +810,34 @@ def run_train():
     free_memory()
     mem_before_gb = torch.cuda.memory_allocated() / 1e9
 
-    build_dir = os.path.join(ROOT, "build")
-    os.makedirs(build_dir, exist_ok=True)
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build_dir)
-    try:
-        config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
-            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, log_every=1,
-            ckpt_dir=ckpt_dir))
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        res = fit("gpt-2b", config, seed=seed,
-                  log_fn=lambda m: print(m, file=sys.stderr, flush=True))
-        fit_s = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        mem_state_gb = torch.cuda.memory_allocated() / 1e9
-        hist = res["history"]
-        steps = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "lr",
-                                    "accuracy")} for h in hist]
-        tok_s = 2 * B * T / (hist[1]["time_s"] + hist[2]["time_s"])
-        # the step-3 checkpoint, restored through ckpt.restore
-        t1 = time.perf_counter()
-        restored = ckpt.restore(ckpt_dir, res["state"])
-        restore_s = time.perf_counter() - t1
-        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f))
-                         for f in os.listdir(ckpt_dir))
-        step_restored, tree = restored[0], restored[1]
-        live = res["state"]["params"]
-        bit_equal = all(np.array_equal(to_numpy(leaf), _get(tree["params"], path))
-                        for path, leaf in _leaves(live))
-        del tree, restored, res, live
-        free_memory()
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, log_every=1,
+        ckpt_dir=ckpt_dir))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fit("gpt-2b", config, seed=seed,
+              log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+    fit_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mem_state_gb = torch.cuda.memory_allocated() / 1e9
+    hist = res["history"]
+    steps = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "lr",
+                                "accuracy")} for h in hist]
+    tok_s = 2 * B * T / (hist[1]["time_s"] + hist[2]["time_s"])
+    # the step-3 checkpoint, restored through ckpt.restore
+    t1 = time.perf_counter()
+    restored = ckpt.restore(ckpt_dir, res["state"])
+    restore_s = time.perf_counter() - t1
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                     for f in os.listdir(ckpt_dir))
+    step_restored, tree = restored[0], restored[1]
+    live = res["state"]["params"]
+    bit_equal = all(np.array_equal(to_numpy(leaf), _get(tree["params"], path))
+                    for path, leaf in _leaves(live))
+    del restored, res, live
+    free_memory()
 
     want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_dq": cfg.n_layers * TRAIN_STEPS,
@@ -840,7 +866,8 @@ def run_train():
     if step_restored != TRAIN_STEPS or not bit_equal:
         raise SystemExit("the step-3 checkpoint did not restore bit-equal")
     return launches, {"tokens_per_s": tok_s, "peak_mem_gb": peak_gb,
-                      "losses": [h["loss"] for h in hist]}
+                      "losses": [h["loss"] for h in hist],
+                      "restore_s": restore_s}, (step_restored, tree)
 
 
 def free_memory() -> None:
@@ -2769,6 +2796,25 @@ def run_compile(table, fp, train_launches, train_summary):
     return launches
 
 
+def run_launcher(name, cwd, *argv):
+    """``python -m repro_torch.launch.<name> ARGV`` in a fresh interpreter
+    in ``cwd`` (its default checkpoint directory lands there): exit code,
+    seconds, whether it printed its deprecation warning, and its result
+    line (the loss or the sampled tokens)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{name}", *argv],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    marker = {"train": "[train] loss", "serve": "[serve] sample"}[name]
+    return {"argv": list(argv), "rc": res.returncode,
+            "seconds": time.perf_counter() - t0,
+            "deprecation_warning": (f"DeprecationWarning: repro_torch.launch.{name} "
+                                    "is deprecated") in res.stderr,
+            "result": [ln for ln in res.stdout.splitlines() if marker in ln],
+            "stderr_tail": res.stderr[-600:] if res.returncode else ""}
+
+
 def run_cli(table, fp):
     """The port's CLI in process (``repro_torch.api.cli.main``): ``kbench
     show`` of the card's table, ``plan`` from it on the H100 fleet (held to
@@ -2841,6 +2887,9 @@ def run_cli(table, fp):
             "--steps", "2", "--batch", "8", "--ckpt-dir", path("ckpt"))
         ssd_launched = LAUNCHES["ssd_intra"] - ssd_before
         launches = dict(LAUNCHES)
+        launchers = {name: run_launcher(name, work, *argv) for name, argv in (
+            ("train", ("--arch", "gpt-2b", "--smoke", "--steps", "2")),
+            ("serve", ("--arch", "gpt-2b", "--smoke")))}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("cli", seconds=seconds, kbench_show=outputs["kbench_show"].splitlines()[0],
@@ -2856,7 +2905,10 @@ def run_cli(table, fp):
                     "median_s": e.median_s} for e in k4_cells],
          k4_launches_grew=k4_grew,
          train_smoke=outputs["train_smoke"].strip().splitlines()[-2:],
-         ssd_launches=ssd_launched, launches=launches)
+         ssd_launches=ssd_launched, launches=launches, launchers=launchers)
+    for name, out in launchers.items():
+        if out["rc"] != 0 or not out["deprecation_warning"] or not out["result"]:
+            raise SystemExit(f"python -m repro_torch.launch.{name}: {out}")
     if not same_plan:
         raise SystemExit("the CLI's plan differs from the planner's on the same table")
     if k4_grew < 5 + 2 or not all(e.device == fp for e in k4_cells):
@@ -2865,6 +2917,259 @@ def run_cli(table, fp):
     if ssd_launched <= 0 or "over 2 steps" not in outputs["train_smoke"]:
         raise SystemExit(f"train --smoke through the CLI launched K5 "
                          f"{ssd_launched} times: {outputs['train_smoke']}")
+    return launches
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits on the host, so that equality is bit equality."""
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int32) if t.element_size() == 4 else t
+
+
+def one_card_cluster():
+    """One H100 sub-cluster: one node of one card."""
+    from repro_torch.core.cluster import GBPS, H100_80G, HeteroCluster, SubCluster
+    return HeteroCluster(subclusters=(SubCluster(
+        "meshH100x1", 1, 1, H100_80G, 450e9, 200 * GBPS),), cross_bw=5 * GBPS)
+
+
+def mesh_resume(tree, shardings, cfg, work, name):
+    """Resume ``fit`` of full-width gpt-2b for one step (step TRAIN_STEPS +
+    1) on the card from ``tree`` placed by ``ckpt.reshard`` onto
+    ``shardings``: DTensors are handed to ``fit`` as their local tensors
+    (detached, the same storage), device leaves as they are.  Returns (the
+    step's history entry, launches, seconds, what was placed)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.api import HarpConfig, fit
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig
+
+    B, T = GPT2B_TRAIN[0], GPT2B_TRAIN[1]
+    t0 = time.perf_counter()
+    placed = ckpt.reshard(tree, shardings)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    info = {"reshard_s": reshard_s, "placements": {}, "device_bytes": 0,
+            "local_vs_shard_shape_mismatch": [], "not_sharing_storage": [],
+            "not_placed": [], "off_device": []}
+
+    def local(path, x, s):
+        name = ".".join(path)
+        if isinstance(x, DTensor):
+            kind = str(x.placements)
+            info["placements"][kind] = info["placements"].get(kind, 0) + 1
+            y = x.to_local().detach()
+            if y.data_ptr() != x.to_local().data_ptr():
+                info["not_sharing_storage"].append(name)
+            if tuple(y.shape) != s.shard_shape(x.shape):
+                info["local_vs_shard_shape_mismatch"].append(name)
+        else:
+            if not isinstance(s, torch.device):
+                info["not_placed"].append(name)
+            y = x
+        if y.device.type != "cuda" or isinstance(y, DTensor):
+            info["off_device"].append(name)
+        info["device_bytes"] += y.numel() * y.element_size()
+        return y
+
+    def unwrap(x, s, path=()):
+        if isinstance(x, dict):
+            return {k: unwrap(v, s[k], path + (k,)) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(unwrap(getattr(x, f), getattr(s, f), path + (f,))
+                             for f in x._fields))
+        return None if x is None else local(path, x, s)
+
+    state = unwrap(placed, shardings)
+    info["device_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    step_fn, _, _ = make_train_step(
+        cfg, OptimizerConfig(warmup_steps=TRAIN_STEPS, total_steps=TRAIN_STEPS),
+        device="cuda")
+    config = HarpConfig(seq_len=T, global_batch=B, trainer=TrainerConfig(
+        total_steps=TRAIN_STEPS + 1, ckpt_every=10 ** 9, log_every=1,
+        ckpt_dir=os.path.join(work, f"ckpt_{name}")))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fit(cfg, config, train_step=step_fn, state=state, seed=0,
+              start_step=TRAIN_STEPS, device="cuda",
+              log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+    fit_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    hist = res["history"]
+    del res, state, placed
+    return hist, launches, fit_s, info
+
+
+def mesh_compression(tree):
+    """``compress_tree`` of full-width leaves (the embedding and layer 0's
+    slices) on the card and on the CPU, two error-feedback steps: the
+    leaves whose q, scale or residual differ in any bit, the wire bytes
+    against ``compressed_wire_bytes``, and the card's seconds."""
+    from repro_torch.comm.selector import compressed_wire_bytes
+    from repro_torch.parallel import compression
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    params = tree["params"]
+    host = {"embed": torch.from_numpy(np.asarray(params["embed"])),
+            "layer0": tree_map(lambda x: torch.from_numpy(np.asarray(x[0])),
+                               params["blocks"])}
+    dev = tree_map(lambda x: x.to("cuda"), host)
+    out = {"leaves": {".".join(p): list(x.shape) for p, x in _leaves(host)},
+           "differ": [], "device_s": []}
+    errs = [compression.init_error_feedback(host),
+            compression.init_error_feedback(dev)]
+    for step in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pay_d, errs[1] = compression.compress_tree(dev, errs[1])
+        torch.cuda.synchronize()
+        out["device_s"].append(time.perf_counter() - t0)
+        pay_h, errs[0] = compression.compress_tree(host, errs[0])
+        for (path, (q, s)), (_, (qd, sd)) in zip(
+                _leaves(pay_h), _leaves(pay_d)):
+            if not (torch.equal(_bits(q), _bits(qd))
+                    and torch.equal(_bits(s), _bits(sd))):
+                out["differ"].append(f"step {step} {'.'.join(path)} q/scale")
+        for (path, e), (_, ed) in zip(_leaves(errs[0]), _leaves(errs[1])):
+            if not torch.equal(_bits(e), _bits(ed)):
+                out["differ"].append(f"step {step} {'.'.join(path)} residual")
+    out["wire_bytes"] = compression.wire_bytes(pay_d)
+    out["wire_bytes_priced"] = sum(compressed_wire_bytes(x.numel() * 4.0)
+                                   for x in tree_leaves(host))
+    out["f32_bytes"] = sum(x.numel() * 4 for x in tree_leaves(host))
+    del dev, errs, pay_d, pay_h
+    return out
+
+
+def run_mesh(restored):
+    """HARP's device meshes on the card.  A one-rank NCCL process group on
+    ``cuda:0`` (an in-process ``HashStore``), ``api.compile`` of gpt-2b on
+    one H100 and ``Executable.stage_mesh(0)``: a 1 x 1 ``("data",
+    "model")`` ``DeviceMesh`` on cuda; the H100 stage of the H100 fleet's
+    plan (1 x 2) refuses to build for want of a second rank.  ``restored``
+    is the ``train`` phase's step-3 checkpoint of full-width gpt-2b as
+    ``ckpt.restore`` gave it on the host (read once, there): placed by
+    ``ckpt.reshard`` onto ``train_shardings`` (params and the AdamW moments
+    as DTensors), and ``fit`` resumed for step 4 on their local tensors;
+    then the same step from the restored tree moved with ``.to("cuda")``:
+    the two losses and grad norms bit-equal, 64 K1 / 32 K2 / 32 K3 per
+    resumed step.  int8 compression of full-width leaves on the card
+    bit-equal to the CPU's."""
+    import torch.distributed as dist
+
+    from repro_torch.api import HarpConfig, compile as api_compile
+    from repro_torch.configs import get_config
+    from repro_torch.core.dp_search import SearchConfig
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer, tree_map
+    from repro_torch.train.step import train_shardings
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = get_config("gpt-2b")
+    B, T = GPT2B_TRAIN[0], GPT2B_TRAIN[1]
+    want_launches = {"flash_attention_fwd": 2 * cfg.n_layers,
+                     "flash_attention_bwd_dq": cfg.n_layers,
+                     "flash_attention_bwd_dkv": cfg.n_layers,
+                     "ssd_intra": 0, "rmsnorm": 0}
+    step_restored, tree = restored
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=build_dir)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        group_s = time.perf_counter() - t0
+        # the one-card plan: the planner's t_max candidates are exact (17
+        # digits); at its default 4 the one-stage plan's time can round
+        # below itself and the search reports the card infeasible
+        plan_bt = dict(seq_len=T, global_batch=B)
+        plan_cfg = HarpConfig(**plan_bt, planner=PlannerConfig(
+            search=SearchConfig(tmax_round_digits=17)))
+        exe = api_compile("gpt-2b", one_card_cluster(), plan_cfg)
+        mesh = exe.stage_mesh(0)
+        fleet = api_compile("gpt-2b", h100_fleet(), HarpConfig(
+            **plan_bt, planner=PlannerConfig(granularity=32, n_microbatches=8)))
+        h100 = [i for i, st in enumerate(fleet.strategy.stages)
+                if st.cluster_idx == 0]
+        two_card_error = None
+        try:
+            fleet.stage_mesh(h100[0])
+        except ValueError as e:
+            two_card_error = str(e)
+
+        opt_init, _ = make_optimizer(OptimizerConfig(
+            warmup_steps=TRAIN_STEPS, total_steps=TRAIN_STEPS))
+        pshard, oshard = train_shardings(cfg, mesh, opt_init,
+                                         build_model(cfg, device="cuda"))
+        shardings = {"params": pshard, "opt_state": oshard}
+        torch.cuda.reset_peak_memory_stats()
+        hist_m, launches, fit_m_s, info = mesh_resume(
+            tree, shardings, cfg, work, "mesh")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        free_memory()
+        cuda = torch.device("cuda")
+        on_device = {"params": tree_map(lambda _: cuda, pshard),
+                     "opt_state": type(oshard)(cuda, tree_map(lambda _: cuda, oshard.mu),
+                                               tree_map(lambda _: cuda, oshard.nu))}
+        hist_d, launches_d, fit_d_s, info_d = mesh_resume(
+            tree, on_device, cfg, work, "device")
+        free_memory()
+        comp = mesh_compression(tree)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+    h_m, h_d = hist_m[0], hist_d[0]
+    bit_equal = (h_m["loss"] == h_d["loss"] and h_m["grad_norm"] == h_d["grad_norm"]
+                 and h_m["total_loss"] == h_d["total_loss"])
+    finite = math.isfinite(h_m["loss"]) and math.isfinite(h_m["grad_norm"])
+    emit("mesh", arch=cfg.arch_id, batch=B, seq_len=T, backend="nccl",
+         seconds=time.perf_counter() - t_phase, group_s=group_s, mesh_shape=list(mesh.shape),
+         mesh_dims=list(mesh.mesh_dim_names), mesh_device=mesh.device_type,
+         mesh_ranks=mesh.mesh.tolist(),
+         plan_stages=[(st.tp, st.dp) for st in exe.strategy.stages],
+         fleet_h100_stage=h100[0] if h100 else None,
+         two_card_stage_error=two_card_error, ckpt_step=step_restored,
+         reshard_s=info["reshard_s"],
+         placements=info["placements"], device_bytes=info["device_bytes"],
+         device_mem_gb_after_reshard=info["device_mem_gb"],
+         local_vs_shard_shape_mismatch=info["local_vs_shard_shape_mismatch"],
+         local_equals_global_shape=not info["local_vs_shard_shape_mismatch"],
+         not_sharing_storage=info["not_sharing_storage"],
+         not_placed=info["not_placed"],
+         off_device=info["off_device"] + info_d["off_device"],
+         device_reshard_s=info_d["reshard_s"], device_bytes_plain=info_d["device_bytes"],
+         step=h_m["step"], loss=h_m["loss"], grad_norm=h_m["grad_norm"],
+         loss_plain_resume=h_d["loss"], grad_norm_plain_resume=h_d["grad_norm"],
+         bit_equal=bit_equal, finite=finite, step_s=h_m["time_s"],
+         step_s_plain_resume=h_d["time_s"], fit_s=fit_m_s, fit_s_plain_resume=fit_d_s,
+         peak_mem_gb=peak_gb, launches=launches, launches_plain_resume=launches_d,
+         launches_expected=want_launches, compression=comp)
+    if tuple(mesh.shape) != (1, 1) or mesh.mesh_dim_names != ("data", "model") \
+            or mesh.device_type != "cuda" or mesh.mesh.tolist() != [[0]]:
+        raise SystemExit(f"stage_mesh(0) of the one-card plan is {mesh}")
+    if not h100 or two_card_error is None:
+        raise SystemExit("the fleet's two-card H100 stage did not refuse a "
+                         "one-rank group")
+    if step_restored != TRAIN_STEPS:
+        raise SystemExit(f"restored step {step_restored}, not {TRAIN_STEPS}")
+    if (info["local_vs_shard_shape_mismatch"] or info["not_sharing_storage"]
+            or info["not_placed"] or info["off_device"] or info_d["off_device"]):
+        raise SystemExit(f"placement: {info}")
+    if h_m["step"] != TRAIN_STEPS + 1 or not finite or not bit_equal:
+        raise SystemExit(f"resumed step: mesh {h_m}, device {h_d}")
+    if launches != want_launches or launches_d != want_launches:
+        raise SystemExit(f"resumed launches {launches} / {launches_d}, "
+                         f"expected {want_launches}")
+    if comp["differ"] or comp["wire_bytes"] != comp["wire_bytes_priced"]:
+        raise SystemExit(f"compression on the card against the CPU: {comp}")
     return launches
 
 
@@ -2897,6 +3202,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.device import set_float32_precision
     from repro_torch.kernels import build
@@ -2929,7 +3235,13 @@ def main() -> int:
     rms_err = check_rmsnorm_cases(gen)
     serve_launches = run_main_path()
     run_contract()
-    train_launches, train_summary = run_train()
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=build_dir)
+    atexit.register(shutil.rmtree, ckpt_dir, ignore_errors=True)
+    # the step-3 checkpoint, read once: held on the host for the mesh phase
+    train_launches, train_summary, train_restored = run_train(ckpt_dir)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     run_train_contract()
     free_memory()                                # nothing of gpt-2b stays
     ssm_serve_launches = run_main_ssm()
@@ -2969,6 +3281,10 @@ def main() -> int:
     run_plan(table, fp)
     compile_launches = run_compile(table, fp, train_launches, train_summary)
     cli_launches = run_cli(table, fp)
+    free_memory()
+    mesh_launches = run_mesh(train_restored)
+    del train_restored
+    free_memory()
     rows = run_timing(gen)
     ssd_rows = run_timing_ssd(gen)
     rms_rows = run_timing_rmsnorm(gen)
@@ -3008,6 +3324,7 @@ def main() -> int:
                                      "library_ms", "bound_simt_ms")}}
 
     bwd_src = "src/repro_torch/csrc/flash_attention_bwd.cu"
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", "src/repro_torch/csrc/flash_attention_fwd.cu",
               "src/repro/kernels/ops.py:120", serve_launches["flash_attention_fwd"],
@@ -3030,6 +3347,7 @@ def main() -> int:
               launches_train_audio=audio_train_launches["flash_attention_fwd"],
               launches_vlm=vlm_serve_launches["flash_attention_fwd"],
               launches_pipeline=pipe_launches["flash_attention_fwd"],
+              launches_mesh=mesh_launches["flash_attention_fwd"],
               pipeline=pipeline_at("flash_attention_fwd"),
               **{name: at_shape("flash_attention_fwd", case, fwd_errs[case])
                  for name, case in NEW_SHAPES.items()},
@@ -3057,6 +3375,7 @@ def main() -> int:
               launches_train_audio=audio_train_launches["flash_attention_bwd_dq"],
               launches_vlm=vlm_serve_launches["flash_attention_bwd_dq"],
               launches_pipeline=pipe_launches["flash_attention_bwd_dq"],
+              launches_mesh=mesh_launches["flash_attention_bwd_dq"],
               pipeline=pipeline_at("flash_attention_bwd_dq"),
               **{name: at_shape("flash_attention_bwd_dq", case,
                                 bwd_err[("flash_attention_bwd_dq", case)])
@@ -3079,6 +3398,7 @@ def main() -> int:
               launches_train_audio=audio_train_launches["flash_attention_bwd_dkv"],
               launches_vlm=vlm_serve_launches["flash_attention_bwd_dkv"],
               launches_pipeline=pipe_launches["flash_attention_bwd_dkv"],
+              launches_mesh=mesh_launches["flash_attention_bwd_dkv"],
               pipeline=pipeline_at("flash_attention_bwd_dkv"),
               **{name: at_shape("flash_attention_bwd_dkv", case,
                                 bwd_err[("flash_attention_bwd_dkv", case)])
@@ -3097,6 +3417,7 @@ def main() -> int:
                             / ssd_rows[MAMBA_PREFILL]["ms"]),
          "launches_train": ssm_train_launches["ssd_intra"],
          "launches_cli": cli_launches["ssd_intra"],
+         "launches_mesh": mesh_launches["ssd_intra"],
          "train_shape": list(MAMBA_TRAIN[:6]),
          "train_ms": ssd_rows[MAMBA_TRAIN]["ms"],
          "train_bound_ms": ssd_rows[MAMBA_TRAIN]["bound_ms"],
@@ -3128,7 +3449,8 @@ def main() -> int:
                            "train_audio": audio_train_launches["rmsnorm"],
                            "main_vlm": vlm_serve_launches["rmsnorm"],
                            "pipeline": pipe_launches["rmsnorm"],
-                           "compile": compile_launches["rmsnorm"]},
+                           "compile": compile_launches["rmsnorm"],
+                           "mesh": mesh_launches["rmsnorm"]},
          "launches_cli": cli_launches["rmsnorm"],
          "wide_shape": list(RMS_WIDE[1]),
          "wide_ms": rms_rows[RMS_WIDE[1]]["ms"],

@@ -18,8 +18,9 @@ unless ``device="cpu"``.  ``Executable.fit`` delegates to ``fit`` (its
 keyword arguments, ``device=`` and ``params=`` included, pass through) and
 wires the elastic controller's telemetry hooks automatically; like the
 reference's, it trains the whole model on the local device and does not run
-the plan's stage split.  Not here yet: ``Executable.stage_mesh`` (device
-meshes, ROADMAP.md Queue 1 item 5).
+the plan's stage split.  ``Executable.stage_mesh`` materializes one stage's
+intra-op plan as a ``torch.distributed`` ``DeviceMesh`` over the ranks of a
+process group the caller has initialised.
 """
 from __future__ import annotations
 
@@ -43,7 +44,9 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.models.api import MODALITY, modality_inputs
 from repro_torch.models.prefill import prefill
-from repro_torch.parallel.sharding import batch_shard_sizes, intra_op_mesh_axes
+from repro_torch.parallel.sharding import (
+    batch_shard_sizes, intra_op_mesh_axes, mesh_from_intra_op,
+)
 from repro_torch.runtime.controller import (
     ControllerConfig, ElasticController, ReplanDecision,
 )
@@ -429,6 +432,19 @@ class Executable:
     def throughput(self, *, priced: bool = True) -> float:
         res = self.simulate(priced=priced)
         return self.strategy.tokens_per_step() / res.makespan
+
+    def stage_mesh(self, stage: int, devices: Optional[Sequence[int]] = None,
+                   *, device_type: str = "cuda"):
+        """Materialize stage ``stage``'s logical mesh as a ``DeviceMesh``
+        over global ranks ``devices`` (default: every rank of the
+        initialised process group; see
+        ``parallel.sharding.mesh_from_intra_op`` for the device-order
+        contract on uneven plans).  Collective, unlike the reference's:
+        every rank of the group calls it for every stage, in the same
+        order (``mesh_from_intra_op``'s contract on ranks)."""
+        return mesh_from_intra_op(
+            _stage_intra_plan(self.strategy.stages[stage]), devices,
+            device_type=device_type)
 
     # -- elastic runtime -----------------------------------------------------
 

@@ -7,8 +7,8 @@ sequence entries by index and NamedTuple fields as ``.<field>`` (the
 reference writes ``opt_state|.step``, ``opt_state|.mu|blocks|w``, ...).
 Trees are nested dicts, lists, tuples and NamedTuples of tensors or numpy
 arrays; ``None`` holds no leaf.  Tensors are copied to host numpy arrays on
-save; ``restore`` returns numpy leaves, as the reference does.  Not here
-yet: ``reshard`` (multi-GPU slice).
+save; ``restore`` returns numpy leaves, as the reference does, and
+``reshard`` places them on a device or, as DTensors, on a ``DeviceMesh``.
 
 - ``save``: flatten the pytree to path-keyed arrays, write ``.npz`` to a temp
   file, fsync, atomic rename -> a crash mid-write never corrupts the latest
@@ -36,6 +36,7 @@ import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.convert import to_numpy
 
@@ -238,6 +239,53 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None
                     flat[k] = z[k]
     tree = _unflatten_into(template, flat)
     return meta["step"], tree, meta.get("extra", {})
+
+
+def reshard(tree, shardings):
+    """Place (host or differently-placed) arrays onto new shardings —
+    elastic scaling after a replan.  ``shardings`` has ``tree``'s structure,
+    matched by path (a mismatch raises); a leaf's sharding is a
+    ``torch.device`` (the leaf moved there whole, the reference's
+    ``SingleDeviceSharding``) or a
+    :class:`~repro_torch.parallel.sharding.NamedSharding` (a DTensor holding
+    this rank's shard on its mesh; every rank passes the same tree, as each
+    restores the same checkpoint).  Leaves are numpy arrays or tensors; a
+    placed leaf never shares memory with ``tree``'s (the steps update their
+    state in place)."""
+    def place(x, s, path):
+        t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        if isinstance(s, torch.device):
+            return t.to(s, copy=True)
+        if hasattr(s, "distribute"):
+            return s.distribute(t.clone() if t.device.type == s.mesh.device_type else t)
+        raise TypeError(f"reshard: {SEP.join(path) or 'the root'} has sharding "
+                        f"{s!r}, neither a torch.device nor a NamedSharding")
+
+    def walk(x, s, path):
+        where = SEP.join(path) or "the root"
+        if x is None or s is None:
+            if x is not None or s is not None:
+                raise ValueError(f"reshard: tree and shardings differ at {where}")
+            return None
+        if isinstance(x, dict):
+            if not isinstance(s, dict) or sorted(x) != sorted(s):
+                theirs = sorted(s) if isinstance(s, dict) else type(s).__name__
+                raise ValueError(f"reshard: tree and shardings differ at {where}: "
+                                 f"keys {sorted(x)} against {theirs}")
+            return {k: walk(x[k], s[k], path + (str(k),)) for k in x}
+        if _is_namedtuple(x):
+            if type(s) is not type(x):
+                raise ValueError(f"reshard: tree and shardings differ at {where}")
+            return type(x)(*(walk(getattr(x, f), getattr(s, f), path + ("." + f,))
+                             for f in x._fields))
+        if isinstance(x, (tuple, list)):
+            if type(s) is not type(x) or len(s) != len(x):
+                raise ValueError(f"reshard: tree and shardings differ at {where}")
+            return type(x)(walk(v, w, path + (str(i),))
+                           for i, (v, w) in enumerate(zip(x, s)))
+        return place(x, s, path)
+
+    return walk(tree, shardings, ())
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,14 @@ Counterpart of ``repro/train/step.py``:
                                ``torch.distributed`` group
                                (``DistributedTransport``).
 
-The reference's device shardings wait for the device-mesh slice (ROADMAP.md,
-Queue 1 item 5); ``pipeline_shardings`` returns its spec trees as host
-data.  Its ``abstract=True`` (dry-run) staging waits for the launcher
-(item 7).
+``make_pipeline_train_step(mesh=...)`` runs one whole stage per rank of
+the mesh's ``pod`` dim; its other dims must be 1 until sharded execution
+lands (ROADMAP.md, Queue 1 item 7).  ``train_shardings`` and ``pipeline_shardings(staging, mesh)``
+give the :class:`~repro_torch.parallel.sharding.NamedSharding` trees of the
+params and AdamW state, which ``checkpoint.ckpt.reshard`` places; the steps
+themselves compute on each rank's local tensors.  The reference's
+``abstract=True`` (dry-run) staging waits for the launcher's dry run
+(ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -27,13 +31,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, generator
 from repro_torch.models import build_model
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.pipeline import LocalTransport, pipeline_loss_fn
+from repro_torch.parallel.pipeline import (
+    DistributedTransport, LocalTransport, pipeline_loss_fn,
+)
 from repro_torch.parallel.staging import build_staging
 from repro_torch.train.optimizer import (
     OptimizerConfig, make_optimizer, tree_leaves, tree_map, tree_unflatten,
 )
 
 _INT_KEYS = ("tokens", "labels")
+
+
+def batch_pspecs(batch_tree, batch_axes=("data",)) -> Any:
+    """Tokens/labels (B, T) -> shard batch dim; modality stubs likewise."""
+    ax = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+    return tree_map(lambda x: (ax, *([None] * (len(x.shape) - 1))), batch_tree)
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -108,6 +120,26 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     return train_step, model, opt_init
 
 
+def train_shardings(cfg: ArchConfig, mesh, opt_init, model):
+    """(param_shardings, opt_shardings) :class:`NamedSharding` trees of
+    ``model``'s params and ``opt_init``'s state: ``mu`` and ``nu`` mirror the
+    params, the step counter is replicated.  Shapes come from ``model.init``
+    and ``opt_init`` under ``FakeTensorMode``, which allocates nothing.
+    ``cfg`` keeps the reference's signature; the model carries it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = model.init(generator(model.device, 0))
+        opt_shape = opt_init(params)
+    pspecs = shd.param_pspecs(params)
+    pshard = tree_map(lambda s: shd.NamedSharding(mesh, s), pspecs)
+    opt_shard = type(opt_shape)(
+        shd.NamedSharding(mesh, ()),
+        tree_map(lambda s: shd.NamedSharding(mesh, s), pspecs),
+        tree_map(lambda s: shd.NamedSharding(mesh, s), pspecs))
+    return pshard, opt_shard
+
+
 # ---------------------------------------------------------------------------
 # multi-pod (pipeline over stages)
 # ---------------------------------------------------------------------------
@@ -118,14 +150,22 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
                              param_dtype=torch.float32,
                              act_dtype=torch.bfloat16,
                              params: Any = None, use_kernels: bool = True,
-                             device: DeviceLike = None, transport=None):
+                             device: DeviceLike = None, transport=None,
+                             mesh=None):
     """Returns (train_step, staging, opt_init, shardings).
 
     train_step(staged, shared, consts, opt_state, batch) -> (staged, shared,
     opt_state, metrics) takes the gradient of the pipeline's loss over
     ``{"staged", "shared"}`` and applies AdamW to that tree, in place.
     ``transport`` of ``None`` is a
-    :class:`~repro_torch.parallel.pipeline.LocalTransport`.  ``params`` are
+    :class:`~repro_torch.parallel.pipeline.LocalTransport`; a ``mesh`` (a
+    ``DeviceMesh`` with a ``pod`` dim, as the reference's) gives a
+    ``DistributedTransport`` over its ``pod`` group instead, and the
+    shardings then hold its ``NamedSharding`` trees too.  Each rank runs
+    its stage whole, so every other dim of the mesh must be 1
+    (``ValueError`` otherwise): the reference shards a stage over ``data``
+    and ``model`` through GSPMD, which the port does not yet do (ROADMAP.md,
+    Queue 1 item 7).  ``params`` are
     in the model's layout, on any device (the host's memory, say); the
     staging's trees are placed on the model's device.  With the local
     transport ``params=None`` means ``model.init`` from a generator seeded 0
@@ -134,6 +174,18 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     leading dim of 1, copied) and the shared trees reach the device: a
     rank that drew the whole model there would need the memory that a
     pipeline exists to split."""
+    if mesh is not None:
+        if transport is not None:
+            raise ValueError("pass a mesh or a transport, not both")
+        sizes = shd.mesh_axis_sizes(mesh)
+        if "pod" not in sizes:
+            raise ValueError(f"the mesh has no 'pod' dim: {sizes}")
+        wide = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
+        if wide:
+            raise ValueError(
+                f"mesh dims {wide} would shard a stage, which the pipeline "
+                "step does not do: each rank runs its stage whole")
+        transport = DistributedTransport(group=mesh.get_group("pod"))
     model = build_model(cfg, use_kernels=use_kernels, param_dtype=param_dtype,
                         device=device)
     dev = model.device
@@ -171,16 +223,24 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
         return tree["staged"], tree["shared"], opt_state, \
             {"total_loss": loss, **metrics, **om}
 
-    return train_step, staging, opt_init, pipeline_shardings(staging)
+    return train_step, staging, opt_init, pipeline_shardings(staging, mesh)
 
 
-def pipeline_shardings(staging) -> Dict[str, Any]:
+def pipeline_shardings(staging, mesh=None) -> Dict[str, Any]:
     """Spec trees (tuples of mesh-axis names and ``None``) of the staging's
     three parameter trees: stage dim on ``pod`` for ``staged`` and
-    ``consts``, the single-pod rules for ``shared``."""
-    return {
+    ``consts``, the single-pod rules for ``shared``.  With a ``mesh``, as
+    the reference's: ``staged`` / ``shared`` / ``consts`` are their
+    ``NamedSharding`` trees and the specs move to ``staged_specs`` /
+    ``shared_specs`` / ``consts_specs``."""
+    specs = {
         "staged": shd.staged_param_pspecs(staging.staged),
         "shared": shd.param_pspecs(staging.shared),
         "consts": tree_map(lambda x: ("pod", *([None] * (x.dim() - 1))),
                            staging.consts),
     }
+    if mesh is None:
+        return specs
+    return {**{name: tree_map(lambda s: shd.NamedSharding(mesh, s), tree)
+               for name, tree in specs.items()},
+            **{f"{name}_specs": tree for name, tree in specs.items()}}

@@ -180,3 +180,26 @@ def test_cli_train_defaults_to_the_card(plan_file, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_main(["train", "--plan", str(plan_file), "--smoke", "--steps",
                    "1", "--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("name, argv, marker", [
+    ("train", ["--steps", "2", "--batch", "4", "--seq", "32", "--ckpt-every", "2"],
+     "[train] loss"),
+    ("serve", ["--batch", "2", "--prompt-len", "8", "--gen", "4"], "[serve] sample"),
+])
+def test_launcher_shims_warn_and_run_on_the_cpu(name, argv, marker, tmp_path,
+                                                capsys, monkeypatch):
+    """``repro_torch.launch.train`` / ``.serve``: the reference's deprecated
+    shims over ``api.fit`` / ``api.generate``, same flags plus ``--device``."""
+    import importlib
+
+    from repro_torch.api import facade
+
+    monkeypatch.chdir(tmp_path)             # the train shim's checkpoints/
+    monkeypatch.setattr(facade, "_DEPRECATION_WARNED", set())
+    shim = importlib.import_module(f"repro_torch.launch.{name}")
+    with pytest.warns(DeprecationWarning, match=f"repro_torch.launch.{name} is deprecated"):
+        shim.main(["--arch", "gpt-2b", "--smoke", "--device", "cpu", *argv])
+    assert marker in capsys.readouterr().out
+    if name == "train":
+        assert os.listdir(tmp_path / "checkpoints") == ["ckpt_0000000002.npz"]

@@ -371,11 +371,29 @@ def test_cli_rejects_dryrun():
     assert "invalid choice: 'dryrun'" in res.stderr
 
 
-def test_executable_has_no_stage_mesh():
-    """Device meshes come with the torch.distributed slice; there is no
-    stand-in that builds something else."""
-    from repro_torch.api import Executable
-    from repro_torch.api import facade
+def test_stage_mesh_raises_without_a_process_group():
+    """A stage's mesh needs the caller's process group; it never starts
+    one itself."""
+    import torch.distributed as dist
 
-    assert not hasattr(Executable, "stage_mesh")
-    assert not hasattr(facade, "mesh_from_intra_op")
+    from repro_torch.api import HarpConfig, compile
+    from repro_torch.core.cluster import A100_40G, GBPS, HeteroCluster, SubCluster
+
+    assert not dist.is_initialized()
+    one_card = HeteroCluster(subclusters=(SubCluster(
+        "meshA100x1", 1, 1, A100_40G, 300e9, 200 * GBPS),), cross_bw=5 * GBPS)
+    exe = compile("granite-moe-1b-a400m", one_card,
+                  HarpConfig(seq_len=1024, global_batch=8))
+    with pytest.raises(RuntimeError, match="torch.distributed is not initialised"):
+        exe.stage_mesh(0, device_type="cpu")
+    assert not dist.is_initialized()
+
+
+def test_no_package_module_imports_torch_testing_internals():
+    """The fake process group is a test tool; the package never imports it."""
+    root = os.path.join(SRC, "repro_torch")
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert "torch.testing" not in f.read(), name
