@@ -245,6 +245,28 @@ each (``{"phase": ...}``):
             error-feedback steps, bit-equal on the card and on the CPU with
             the wire bytes ``comm.selector.compressed_wire_bytes`` prices.
             The group is destroyed at the end of the phase;
+  sharded   (in the ``mesh`` phase's group, before it is destroyed) one
+            ``make_train_step(act_rules=train_act_rules(),
+            use_kernels=False)`` step of full-width gpt-2b at 8 x 1024, f32,
+            computing on DTensors: the same step-3 host tree placed by
+            ``ckpt.reshard`` onto ``train_shardings`` of the 1 x 1 mesh, the
+            batch ``Shard(0)`` over ``data``; then the same step on plain
+            CUDA tensors from the same tree and batch.  Gates: loss and grad
+            norm bit-equal or within 1e-6 relative, every leaf a DTensor
+            whose local shape is its ``shard_shape``, 0 launches of K1-K5
+            (the reference's sharded path runs its jnp path); step seconds,
+            peak memory and the ``nvidia-smi`` line in its line;
+  dryrun    the launcher's dry run (``launch.dryrun.run_cell``) at full
+            published size in a fake process group of 256 ranks (512 for
+            ``multi``) on the host, nothing on the card: a dense train cell
+            (gemma-2b, one microbatch scaled by 16, ``REPRO_FAST_ANALYSIS``),
+            a dense prefill (gemma-2b) and decode (deepseek-7b), mamba2's
+            and zamba2's ``long_500k``, a MoE train cell (granite-moe, one
+            microbatch scaled by 16) and decode, and a multi-pod decode
+            (minitron-8b); one line each (ok, trace seconds, peak and
+            argument bytes per device, FLOPs, collectives by kind and mesh
+            dim), marked as host counts.  Gates: every cell ``ok``, its
+            argument bytes the sum of its leaves' ``shard_shape`` bytes;
   timing    each kernel at its main path's shape (the flash forward at the
             prefill and the training shape, the backward kernels at the
             training shape, of gpt-2b and, f32, of granite-moe, zamba2-7b and
@@ -3122,6 +3144,7 @@ def run_mesh(restored):
             tree, on_device, cfg, work, "device")
         free_memory()
         comp = mesh_compression(tree)
+        run_sharded(mesh, tree, cfg)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
@@ -3171,6 +3194,207 @@ def run_mesh(restored):
     if comp["differ"] or comp["wire_bytes"] != comp["wire_bytes_priced"]:
         raise SystemExit(f"compression on the card against the CPU: {comp}")
     return launches
+
+
+SHARDED_REL_TOL = 1e-6
+# the AdamW update of the sharded step against the plain step's, per leaf
+# relative to the update's size: f32, where the two gradients differ at
+# f32 rounding (the grad norm by an ulp)
+SHARDED_UPDATE_TOL = 1e-5
+
+
+def run_sharded(mesh, tree, cfg):
+    """Sharded execution on the card: one ``make_train_step(act_rules=
+    train_act_rules(), use_kernels=False)`` step of full-width gpt-2b at
+    8 x 1024, f32, its params and AdamW state the ``train`` phase's step-3
+    checkpoint (the host tree the ``mesh`` phase holds) placed by
+    ``ckpt.reshard`` onto ``train_shardings`` of the 1 x 1 ``("data",
+    "model")`` mesh and the batch a ``Shard(0)`` DTensor, against the same
+    step on plain CUDA tensors from the same tree and batch.  Returns the
+    emitted fields; raises on a failed gate: loss and grad norm bit-equal or
+    within ``SHARDED_REL_TOL``, every leaf's local shape its
+    ``shard_shape``, no kernel launched (the sharded path runs the plain
+    path, as the reference's runs its jnp path), and the params, ``mu`` and
+    ``nu`` that the two AdamW updates leave within ``SHARDED_UPDATE_TOL``
+    of each other per leaf, relative to the size of the update."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.optimizer import (
+        OptimizerConfig, make_optimizer, tree_leaves, tree_map,
+    )
+    from repro_torch.train.step import make_train_step, train_shardings
+
+    B, T = GPT2B_TRAIN[0], GPT2B_TRAIN[1]
+    opt_cfg = OptimizerConfig(warmup_steps=TRAIN_STEPS, total_steps=TRAIN_STEPS)
+    opt_init, _ = make_optimizer(opt_cfg)
+    pshard, oshard = train_shardings(cfg, mesh, opt_init, build_model(cfg, device="cuda"))
+    shardings = {"params": pshard, "opt_state": oshard}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen, device="cuda")
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    step, _, _ = make_train_step(cfg, opt_cfg, act_rules=shd.train_act_rules(),
+                                 use_kernels=False, device="cuda")
+    out = {}
+
+    def one(name, placed, feed):
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, m = step(placed["params"], placed["opt_state"], feed)
+        loss, gn = (float(x.full_tensor() if isinstance(x, DTensor) else x)
+                    for x in (m["loss"], m["grad_norm"]))
+        torch.cuda.synchronize()
+        out[name] = {"step_s": time.perf_counter() - t0, "loss": loss,
+                     "grad_norm": gn, "launches": dict(LAUNCHES),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def walk(x, sh, path=()):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                yield from walk(x[k], sh[k], path + (k,))
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            for f in x._fields:
+                if getattr(x, f) is not None:
+                    yield from walk(getattr(x, f), getattr(sh, f), path + (f,))
+        else:
+            yield path, x, sh
+
+    placed = ckpt.reshard(tree, shardings)
+    mismatch, not_dtensor = [], []
+    for path, x, sh in walk(placed, shardings):
+        if not isinstance(x, DTensor):
+            not_dtensor.append(".".join(path))
+        elif tuple(x.to_local().shape) != sh.shard_shape(tuple(x.shape)):
+            mismatch.append(".".join(path))
+    feed = tree_map(lambda sh, x: sh.distribute(x),
+                    shd.batch_shardings(mesh, batch, "data"), batch)
+    one("sharded", placed, feed)
+    # what the update left, on the host beside the restored tree
+    updated = {path: x.to_local().cpu() for path, x, _ in walk(placed, shardings)
+               if path[0] == "params" or path[1] in ("mu", "nu")}
+    del placed, feed
+    free_memory()
+    cuda = torch.device("cuda")
+    on_device = {"params": tree_map(lambda _: cuda, pshard),
+                 "opt_state": type(oshard)(cuda, tree_map(lambda _: cuda, oshard.mu),
+                                           tree_map(lambda _: cuda, oshard.nu))}
+    placed = ckpt.reshard(tree, on_device)
+    one("plain", placed, batch)
+    # per leaf, |sharded - plain| over |plain - restored|: the two updates'
+    # difference against the update's own size, the largest per kind
+    before = {path: x for path, x, _ in walk(tree, shardings)}
+    update_rel = {}
+    for path, x, _ in walk(placed, shardings):
+        if path in updated and x.numel():
+            kind = path[0] if path[0] == "params" else path[1]
+            diff = torch.linalg.vector_norm(x - updated[path].to(cuda)).item()
+            moved = torch.linalg.vector_norm(x - torch.as_tensor(before[path]).to(cuda)).item()
+            update_rel[kind] = max(update_rel.get(kind, 0.0), diff / max(moved, 1e-30))
+    del placed, updated
+    free_memory()
+    s_, p_ = out["sharded"], out["plain"]
+    rel = {k: abs(s_[k] - p_[k]) / max(abs(p_[k]), 1e-30) for k in ("loss", "grad_norm")}
+    bit_equal = s_["loss"] == p_["loss"] and s_["grad_norm"] == p_["grad_norm"]
+    launched = {k: v for r in (s_, p_) for k, v in r["launches"].items() if v}
+    fields = dict(arch=cfg.arch_id, batch=B, seq_len=T, dtype="float32",
+                  mesh_shape=list(mesh.shape), mesh_device=mesh.device_type,
+                  use_kernels=False, act_rules="train_act_rules",
+                  leaves=len(tree_leaves(pshard)), local_vs_shard_shape_mismatch=mismatch,
+                  not_dtensor=not_dtensor, step_s=s_["step_s"],
+                  step_s_plain=p_["step_s"], loss=s_["loss"], loss_plain=p_["loss"],
+                  grad_norm=s_["grad_norm"], grad_norm_plain=p_["grad_norm"],
+                  rel_diff=rel, bit_equal=bit_equal, tol=SHARDED_REL_TOL,
+                  update_rel=update_rel, update_tol=SHARDED_UPDATE_TOL,
+                  launches=s_["launches"], launches_plain=p_["launches"],
+                  peak_mem_gb=s_["peak_mem_gb"], peak_mem_gb_plain=p_["peak_mem_gb"],
+                  nvidia_smi=nvidia_smi_line())
+    emit("sharded", **fields)
+    if mismatch or not_dtensor:
+        raise SystemExit(f"sharded placement: {mismatch} {not_dtensor}")
+    if launched:
+        raise SystemExit(f"sharded phase launched kernels: {launched}")
+    if not (math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])):
+        raise SystemExit(f"sharded step not finite: {s_}")
+    if not bit_equal and max(rel.values()) > SHARDED_REL_TOL:
+        raise SystemExit(f"sharded step against the plain one: {rel}")
+    if sorted(update_rel) != ["mu", "nu", "params"] or \
+            max(update_rel.values()) > SHARDED_UPDATE_TOL:
+        raise SystemExit(f"sharded AdamW update against the plain one: {update_rel}")
+    return fields
+
+
+# the dry run's cells on the chip machine's host: one per kind the
+# contract names; the dense train cell runs one microbatch scaled by 16
+# (REPRO_FAST_ANALYSIS, the reference's own mode) to fit the phase's time
+DRYRUN_CELLS = [
+    ("gemma-2b", "train_4k", "single", {"REPRO_FAST_ANALYSIS": "1"}),
+    ("gemma-2b", "prefill_32k", "single", {}),
+    ("deepseek-7b", "decode_32k", "single", {}),
+    ("mamba2-2.7b", "long_500k", "single", {}),
+    ("zamba2-7b", "long_500k", "single", {}),
+    ("granite-moe-1b-a400m", "train_4k", "single", {"REPRO_FAST_ANALYSIS": "1"}),
+    ("granite-moe-1b-a400m", "decode_32k", "single", {}),
+    ("minitron-8b", "decode_32k", "multi", {}),
+]
+
+
+def run_dryrun():
+    """The launcher's dry run at full published size on the 256- or
+    512-rank fake process group, on the host: ``launch.dryrun.run_cell``
+    for each of ``DRYRUN_CELLS``, every record ``ok`` and its argument bytes
+    the sum of its leaves' ``shard_shape`` bytes (``build_case`` in a fake
+    world of its own).  These are host counts: nothing runs on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as D
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=os.path.join(ROOT, "build"))
+    failed = []
+    try:
+        for arch, shape, mk, env in DRYRUN_CELLS:
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                rec = D.run_cell(arch, shape, mk, work)
+                with D.fake_world(mk):
+                    want = D.shard_bytes(D.cell_case(arch, shape, mk)[0])
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            mem = rec.get("memory", {})
+            emit("dryrun", cell=f"{arch} x {shape} x {mk}", ok=rec["ok"],
+                 error=rec.get("error"), host_counts_not_card_time=True,
+                 world=D.world_size(mk), knobs=env or None,
+                 analysis_mode=rec.get("analysis_mode"), trace_s=rec.get("trace_s"),
+                 total_s=rec["total_s"], peak_per_device=mem.get("peak_per_device"),
+                 argument_bytes=mem.get("argument_bytes"),
+                 argument_bytes_from_shard_shapes=want,
+                 output_bytes=mem.get("output_bytes"), alias_bytes=mem.get("alias_bytes"),
+                 temp_bytes=mem.get("temp_bytes"),
+                 flops_per_device=rec.get("flops_per_device"),
+                 collectives=rec.get("collectives"),
+                 collectives_by_mesh_dim=rec.get("collectives_by_mesh_dim"),
+                 collective_bytes_per_device=rec.get("collective_bytes_per_device"))
+            if not rec["ok"] or mem.get("argument_bytes") != want:
+                failed.append((arch, shape, mk, rec.get("error")))
+            if dist.is_initialized():
+                failed.append((arch, shape, mk, "process group left initialised"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("dryrun_total", seconds=time.perf_counter() - t_phase,
+         cells=len(DRYRUN_CELLS), host_counts_not_card_time=True)
+    if failed:
+        raise SystemExit(f"dry-run cells failed: {failed}")
 
 
 def run_timing_rmsnorm(gen):
@@ -3285,6 +3509,7 @@ def main() -> int:
     mesh_launches = run_mesh(train_restored)
     del train_restored
     free_memory()
+    run_dryrun()
     rows = run_timing(gen)
     ssd_rows = run_timing_ssd(gen)
     rms_rows = run_timing_rmsnorm(gen)

@@ -129,7 +129,7 @@ def main() -> int:
              r["decode_tokens_per_s"] for r in warm))
 
     dev = resolve_device(None)
-    serve_step, model = make_serve_step(cfg, device=dev)
+    serve_step, model, _ = make_serve_step(cfg, device=dev)
     gen = generator(dev, args.seed)
     params = model.init(gen)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -8,8 +8,10 @@ subcommands, flags and outputs, apart from two differences:
   --interpret``, the reference's flag, means the same).  ``kbench
   collect``'s table-fingerprint override, the reference's ``--device``, is
   ``--fingerprint`` here.
-- ``dryrun`` is not here yet: it needs the launcher (ROADMAP.md, Queue 1
-  item 7), so the parser rejects it.
+- ``dryrun`` forwards to ``repro_torch.launch.dryrun`` with its own
+  flags, as the reference's forwards to its launcher; the port's adds
+  ``--reduced`` (the arch's reduced config) and writes under
+  ``results/dryrun_torch/``.
 
 Subcommands round-trip the :class:`~repro_torch.api.artifacts.Plan` JSON artifact:
 
@@ -33,6 +35,7 @@ Subcommands round-trip the :class:`~repro_torch.api.artifacts.Plan` JSON artifac
     python -m repro_torch trace --plan plan.json -o trace.json
     python -m repro_torch trace --plan plan.json --replay chaos --steps 200 \\
         -o replay_trace.json
+    python -m repro_torch dryrun --arch minitron-8b --shape train_4k --mesh single
 
 ``plan`` on a planning box, ``simulate``/``train``/``replay`` anywhere —
 the artifact carries the cluster spec and config with it.
@@ -658,11 +661,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "baseline — planning failures raise)")
     c.add_argument("--p-planner-timeout", type=float, default=0.0)
     c.add_argument("--p-planner-infeasible", type=float, default=0.0)
+
+    sub.add_parser("dryrun", add_help=False,
+                   help="forward to repro_torch.launch.dryrun (own flags)")
     return ap
+
+
+def cmd_dryrun(extra: List[str]) -> int:
+    from repro_torch.launch import dryrun
+    return dryrun.main(extra)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "dryrun":
+        return cmd_dryrun(argv[1:])
     args = build_parser().parse_args(argv)
     return {"plan": cmd_plan, "simulate": cmd_simulate,
             "train": cmd_train, "replay": cmd_replay,

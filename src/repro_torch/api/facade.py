@@ -903,7 +903,7 @@ def generate(arch: Union[str, ArchConfig], *,
     if reduced:
         cfg = cfg.reduced()
     dev = resolve_device(device)
-    serve_step, model = make_serve_step(
+    serve_step, model, _ = make_serve_step(
         cfg, use_kernels=use_kernels, greedy=greedy, temperature=temperature,
         device=dev)
     gen = generator(dev, seed)

@@ -4,6 +4,12 @@ Counterpart of ``repro/kernels/ops.py``: the tuned-block registry (same op
 names and shape keys), ``flash_attention`` and ``ssd_intra``, each with its
 gradient, and ``rmsnorm`` (forward only, as the reference's).  Launch counts
 are in ``repro_torch.kernels.LAUNCHES``.
+
+Each entry point takes plain tensors only: a DTensor raises
+(:func:`refuse_dtensor`).  The sharded path runs the plain PyTorch path,
+as the reference's sharded programs run its ``jnp`` path and never
+partition a Pallas call; a kernel handed a DTensor neither gathers it nor
+falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -11,11 +17,22 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import ssd_intra_oracle
+
+
+def refuse_dtensor(op: str, *tensors) -> None:
+    """Raise ``TypeError`` when any of ``tensors`` is a DTensor."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"kernels.ops.{op} takes plain tensors, got a DTensor: the port's "
+            "kernels have no sharding rule (the sharded path runs "
+            "use_kernels=False, as the reference's runs its jnp path)")
+
 
 # ---------------------------------------------------------------------------
 # Tuned-block registry
@@ -98,6 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     forward kernel, and the dq and dk/dv kernels for the backward.  The
     forward's blocks come from :func:`flash_blocks`; the backward kernels
     size their own (``bwd_blocks``) and take none from the registry."""
+    refuse_dtensor("flash_attention", q, k, v)
     shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
     block_q, block_k = flash_blocks(shape, q.element_size(), block_q, block_k)
     return _fa.FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
@@ -144,6 +162,7 @@ def ssd_intra(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     """Intra-chunk SSD term in the model layout, f32 (see
     ``kernels/ssd_scan.py:ssd_intra``), differentiable through
     :class:`SSDIntra`."""
+    refuse_dtensor("ssd_intra", xc, dtc, cum, Bc, Cc)
     return SSDIntra.apply(xc, dtc, cum, Bc, Cc)
 
 
@@ -159,6 +178,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     ``block_rows`` of None resolves through the tuned-block registry under
     (rows, D) and defaults to 128.  K4 masks its last row tile, so any block
     works at any row count (the reference halves it until it divides)."""
+    refuse_dtensor("rmsnorm", x, w)
     shape = x.shape
     D = shape[-1]
     rows = math.prod(shape[:-1])

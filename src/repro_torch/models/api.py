@@ -4,9 +4,12 @@ Counterpart of ``repro/models/api.py``: ``build_model(cfg)`` returns a
 :class:`Model` of plain functions ``init / forward / loss / init_cache /
 decode_step`` bound to one device, dispatching on ``cfg.family``.  The
 VLM's batches also hold ``image_embeds`` and the audio family's ``frames``
-(:func:`modality_inputs`).  The reference's ``input_specs`` /
-``cache_specs`` / ``param_specs``, which only its launcher's dry run uses,
-come with the port's launcher.
+(:func:`modality_inputs`).  :func:`input_specs`, :func:`cache_specs` and
+:func:`param_specs` are the reference's stand-ins for the launcher's dry
+run: ``meta`` tensors of the same shapes and dtypes, leaf for leaf, which
+allocate nothing.  Their tokens are int32, as the reference's; the port's
+real batches carry int64 ids (``train.step.batch_to_device``), and the
+model code takes either.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import (
     encdec, hybrid_lm, mamba_lm, moe_lm, transformer, vlm,
 )
-from repro_torch.models.common import softmax_cross_entropy
+from repro_torch.models.common import pin_grad, softmax_cross_entropy
 from repro_torch.models.prefill import check_family
 
 _FAMILY = {"dense": transformer, "moe": moe_lm, "ssm": mamba_lm,
@@ -76,6 +79,7 @@ def build_model(cfg: ArchConfig, *, use_kernels: bool = True,
     def loss_fn(params, batch):
         logits, aux = forward_fn(params, batch)
         per_tok, acc = softmax_cross_entropy(logits, batch["labels"])
+        per_tok = pin_grad(per_tok)
         mask = batch.get("loss_mask")
         if mask is None:
             loss = per_tok.mean()
@@ -96,3 +100,64 @@ def build_model(cfg: ArchConfig, *, use_kernels: bool = True,
 
     return Model(cfg=cfg, device=dev, init=init_fn, forward=forward_fn,
                  loss=loss_fn, init_cache=init_cache_fn, decode_step=decode_fn)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-tensor stand-ins: no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(x.shape), dtype=x.dtype, device="meta")
+
+
+def _tree_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_meta(v) for k, v in tree.items()}
+    return _meta(tree)
+
+
+def input_specs(cfg: ArchConfig, shape, act_dtype=torch.bfloat16
+                ) -> Dict[str, torch.Tensor]:
+    """Batch input stand-ins for (arch, shape) as ``meta`` tensors.
+
+    train/prefill: int32 token batch (+ labels for train, + the modality
+    stub in ``act_dtype``).  decode: one int32 token per sequence and the
+    int32 position; the KV cache / SSM state is :func:`cache_specs`'s."""
+    B, T = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": spec((B, T), i32)}
+        if shape.kind == "train":
+            specs["labels"] = spec((B, T), i32)
+        if cfg.family in MODALITY:
+            key, rows = MODALITY[cfg.family]
+            specs[key] = spec((B, getattr(cfg, rows), cfg.d_model), act_dtype)
+        return specs
+    return {"tokens": spec((B, 1), i32), "pos": spec((), i32)}
+
+
+def cache_specs(cfg: ArchConfig, shape, dtype=torch.bfloat16) -> Any:
+    """``meta`` stand-ins of the KV cache / SSM state of a decode cell."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    model = build_model(cfg, device="cpu")
+    with FakeTensorMode():
+        cache = model.init_cache(shape.global_batch, shape.seq_len, dtype)
+    return _tree_meta(cache)
+
+
+def param_specs(cfg: ArchConfig, param_dtype=torch.float32) -> Any:
+    """``meta`` stand-ins of the parameter tree: ``model.init`` under
+    ``FakeTensorMode``, so nothing is drawn or allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.device import generator
+
+    model = build_model(cfg, param_dtype=param_dtype, device="cpu")
+    with FakeTensorMode():
+        params = model.init(generator(model.device, 0))
+    return _tree_meta(params)

@@ -24,7 +24,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (
-    dense_init, embed_init, layer, rms_norm, shard_act, unstack,
+    dense_init, embed_init, embed_lookup, layer, rms_norm, shard_act, unstack,
 )
 
 Params = Dict[str, Any]
@@ -90,9 +90,14 @@ def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor, *,
 def embed_positions(params: Params, tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
     """Token embeddings plus the learned positions start, start + 1, ...
     (modulo MAX_DEC_POS).  No activation-dtype cast and no embedding scale,
-    as in the reference."""
+    as in the reference.  Placed as the decoder blocks' output is
+    (``shard_act``; a no-op but on DTensors), where the reference leaves the
+    sum of the two lookups to its partitioner: on DTensors the two
+    lookups' placements disagree."""
     pos = torch.arange(start, start + tokens.shape[1], device=tokens.device)
-    return params["embed"][tokens] + params["pos_embed"][pos % MAX_DEC_POS][None]
+    h = (embed_lookup(params["embed"], tokens)
+         + embed_lookup(params["pos_embed"], pos % MAX_DEC_POS)[None])
+    return shard_act(h, ("batch", "seq", "embed"))
 
 
 def _dec_block(cfg: ArchConfig, p: Params, h: torch.Tensor, memory: torch.Tensor,

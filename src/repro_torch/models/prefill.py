@@ -12,6 +12,13 @@ where the reference stacks every layer's output of the scan: that saves a
 full-precision copy of the whole cache.  The VLM's batch also holds
 ``image_embeds`` (B, n_image_tokens, d), the audio family's ``frames`` (B,
 enc_frames, d).
+
+Under sharded execution (DTensor params, ``prefill_act_rules``) the cache
+is made as DTensors in the decode layout (``sharding.cache_pspecs``:
+batch, K/V sequence over ``model``), the layout the reference's
+``shard_act`` sites give its stacked K/V, each rank allocating only its
+shard; each layer's K/V is written where the cache lies
+(``attention.write_rows``).
 """
 from __future__ import annotations
 
@@ -25,7 +32,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import (
     encdec, hybrid_lm, mamba_lm, moe_lm, transformer, vlm,
 )
-from repro_torch.models.common import layer, rms_norm
+from repro_torch.models.common import (
+    current_mesh, current_rules, layer, rms_norm, shard_act,
+)
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import ssm_block
 
@@ -47,19 +56,38 @@ def _attn_collect(cfg, p, h, *, window=0, use_kernels=False):
     return h + a, k, v
 
 
+def _new_cache(init, cfg, batch: int, cache_len: int, *args, device):
+    """The family's zeroed cache (``init(cfg, batch, cache_len, *args,
+    device=...)``); under an ambient mesh and rules, DTensors placed by
+    ``cache_pspecs``, each rank allocating only its shard."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return init(cfg, batch, cache_len, *args, device=device)
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.optimizer import tree_map
+
+    meta = init(cfg, batch, cache_len, *args, device="meta")
+    shardings = shd.fitted_shardings(mesh, shd.cache_pspecs(meta, rules), meta)
+    return tree_map(lambda sh, x: sh.place(x, device).zero_(), shardings, meta)
+
+
 def _pad_cache(dst: torch.Tensor, k: torch.Tensor) -> None:
     """Write k (B, T, KV, D) into dst (B, cache_len, KV, D) at [:, :T]; the
     slots past T stay zero (the reference's right padding)."""
-    dst[:, :k.shape[1]] = k
+    attn.write_rows(dst, k)
 
 
 def _ring_slice(dst: torch.Tensor, k: torch.Tensor, T: int) -> None:
     """Write the last ``loc_len = dst.shape[1]`` positions of k into dst in
-    decode's ring order (slot = position % loc_len)."""
+    decode's ring order (slot = position % loc_len): a rotation of the
+    tail when it fills the ring, the first T slots when it does not."""
     loc_len = dst.shape[1]
     w = min(loc_len, T)
-    slots = torch.arange(T - w, T, device=k.device) % loc_len
-    dst[:, slots] = k[:, T - w:].to(dst.dtype)
+    tail = k[:, T - w:]
+    if w == loc_len:                  # position T - w + j lands in slot (T - w + j) % L
+        s = (T - w) % loc_len
+        tail = torch.cat([tail[:, loc_len - s:], tail[:, :loc_len - s]], dim=1)
+    attn.write_rows(dst, tail)
 
 
 def _mlp_res(cfg, p, h):
@@ -70,11 +98,11 @@ def _mlp_res(cfg, p, h):
 def _prefill_dense(cfg, params, batch, cache_len, dtype, use_kernels):
     h = transformer.embed_tokens(cfg, params, batch["tokens"])
     B, T = h.shape[:2]
-    cache = transformer.init_cache(cfg, B, cache_len, dtype, device=h.device)
+    cache = _new_cache(transformer.init_cache, cfg, B, cache_len, dtype, device=h.device)
     for i, window in transformer.layer_windows(cfg):
         p = layer(params["blocks"], i)
         h, k, v = _attn_collect(cfg, p, h, window=window, use_kernels=use_kernels)
-        h = _mlp_res(cfg, p, h)
+        h = shard_act(_mlp_res(cfg, p, h), ("batch", "seq", "embed"))
         ck, cv = transformer.layer_cache(cfg, cache, i)
         if ck.shape[1] == cache_len:
             _pad_cache(ck, k)
@@ -89,7 +117,8 @@ def _prefill_moe(cfg, params, batch, cache_len, dtype, use_kernels):
     """Routing capacity is taken over the B * T prompt tokens; the layers'
     aux losses are not computed."""
     h = transformer.embed_tokens(cfg, params, batch["tokens"])
-    cache = moe_lm.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    cache = _new_cache(moe_lm.init_cache, cfg, h.shape[0], cache_len, dtype,
+                       device=h.device)
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
         h, k, v = _attn_collect(cfg, p, h, use_kernels=use_kernels)
@@ -115,7 +144,8 @@ def _prefill_ssm(cfg, params, batch, cache_len, dtype, use_kernels):
     """States ``{"s": (L,B,H,P,N), "conv": (L,B,K-1,C)}``, f32 whatever the
     cache dtype (the reference's are the scan's f32 outputs)."""
     h = transformer.embed_tokens(cfg, params, batch["tokens"])
-    states = mamba_lm.init_cache(cfg, h.shape[0], cache_len, device=h.device)
+    states = _new_cache(mamba_lm.init_cache, cfg, h.shape[0], cache_len,
+                        device=h.device)
     for i in range(cfg.n_layers):
         h, st = _ssm_block_state(cfg, layer(params["blocks"], i), h, use_kernels)
         for k, v in st.items():
@@ -132,7 +162,8 @@ def _prefill_hybrid(cfg, params, batch, cache_len, dtype, use_kernels):
     """SSD states f32 (``ssm_groups`` (n_apps, k, B, ...), ``ssm_tail``);
     each shared application's K/V in the cache dtype (n_apps, B, S, KV, D)."""
     h = transformer.embed_tokens(cfg, params, batch["tokens"])
-    cache = hybrid_lm.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    cache = _new_cache(hybrid_lm.init_cache, cfg, h.shape[0], cache_len, dtype,
+                       device=h.device)
     for g in range(hybrid_lm._n_apps(cfg)):
         pg, st_g = layer(params["groups"], g), layer(cache["ssm_groups"], g)
         for j in range(cfg.shared_attn_every):
@@ -155,7 +186,8 @@ def _prefill_vlm(cfg, params, batch, cache_len, dtype, use_kernels):
     dtype."""
     h = transformer.embed_tokens(cfg, params, batch["tokens"])
     memory = batch["image_embeds"].to(h.dtype)
-    cache = vlm.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    cache = _new_cache(vlm.init_cache, cfg, h.shape[0], cache_len, dtype,
+                       device=h.device)
     n_groups, n_self = vlm._group_dims(cfg)
     for g in range(n_groups):
         pg_self = layer(params["self_blocks"], g)
@@ -180,7 +212,8 @@ def _prefill_audio(cfg, params, batch, cache_len, dtype, use_kernels):
                            batch["frames"].to(params["embed"].dtype),
                            use_kernels=use_kernels, remat=False)
     h = encdec.embed_positions(params, batch["tokens"])
-    cache = encdec.init_cache(cfg, h.shape[0], cache_len, dtype, device=h.device)
+    cache = _new_cache(encdec.init_cache, cfg, h.shape[0], cache_len, dtype,
+                       device=h.device)
     for i in range(cfg.n_layers):
         h, (k, v), (mk, mv) = encdec._dec_block(
             cfg, layer(params["dec_blocks"], i), h, memory, use_kernels,

@@ -21,7 +21,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, linear, rms_norm, shard_act
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.models.common import (
+    dense_init, linear, local_shards, merge_last, on_mesh, replicate_dims,
+    rms_norm, shard_act, split_last,
+)
 
 Params = Dict[str, Any]
 
@@ -52,13 +58,35 @@ def ssm_init(gen: torch.Generator, d_model: int, d_inner: int, d_state: int,
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, T, C); w: (K, C); b: (C,)."""
+    """Depthwise causal conv. x: (B, T, C); w: (K, C); b: (C,).  A DTensor
+    ``x`` runs per (batch, channel) shard (:func:`_sharded_conv1d`)."""
+    if isinstance(x, DTensor):
+        return _sharded_conv1d(x, w, b)
     K, T = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for k in range(K):  # K is tiny (4): unrolled taps
         out = out + pad[:, k:k + T].float() * w[k].float()
     return (out + b.float()).to(x.dtype)
+
+
+def _sharded_conv1d(x, w, b):
+    """The depthwise conv of a DTensor ``x`` on each rank's own batch rows
+    and channels (``local_map``; the taps read along time, which stays
+    whole).  The weights' gradient is ``Partial`` over the batch's mesh
+    dims (each rank's rows contribute a part)."""
+    mesh = x.device_mesh
+    x = replicate_dims(x, [1])
+    xp = list(x.placements)
+    ch = [Shard(1) if p == Shard(2) else Replicate() for p in xp]
+    bias = [Shard(0) if p == Shard(2) else Replicate() for p in xp]
+    part = lambda pl: [Partial() if p == Shard(0) else q for p, q in zip(xp, pl)]
+    w = on_mesh(w, mesh).redistribute(mesh, ch)
+    b = on_mesh(b, mesh).redistribute(mesh, bias)
+    return local_map(local_shards(causal_conv1d), out_placements=xp,
+                     in_placements=(xp, ch, bias),
+                     in_grad_placements=(xp, part(ch), part(bias)),
+                     device_mesh=mesh)(x, w, b)
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +166,36 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     return y.to(x.dtype), s
 
 
+def ssd(x, dt, A, Bm, Cm, chunk: int, use_kernels: bool = False):
+    """:func:`ssd_chunked` from a zero state.  DTensors (on the plain path)
+    run per (batch, head) shard (``local_map``): the recurrence is
+    independent per sequence and per head, and B and C, shared by the
+    heads, come whole to every rank of the heads' mesh dims, where their
+    gradient is ``Partial``.  x's placements lead: dt and A follow its
+    batch and head sharding."""
+    if not isinstance(x, DTensor) or use_kernels:
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk, use_kernels=use_kernels)
+    mesh = x.device_mesh
+    x = replicate_dims(x, [1, 3])
+    xp = list(x.placements)
+    batch = [Shard(0) if p == Shard(0) else Replicate() for p in xp]
+    dtp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in xp]
+    ap = [Shard(0) if p == Shard(2) else Replicate() for p in xp]
+    sp = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2) else Replicate()
+          for p in xp]
+    a_grad = [Partial() if p == Shard(0) else q for p, q in zip(xp, ap)]
+    bc_grad = [Partial() if p == Shard(2) else q for p, q in zip(xp, batch)]
+    dt = on_mesh(dt, mesh).redistribute(mesh, dtp)
+    A = on_mesh(A, mesh).redistribute(mesh, ap)
+    Bm = on_mesh(Bm, mesh).redistribute(mesh, batch)
+    Cm = on_mesh(Cm, mesh).redistribute(mesh, batch)
+    return local_map(local_shards(lambda *a: ssd_chunked(*a, chunk)),
+                     out_placements=(xp, sp),
+                     in_placements=(xp, dtp, ap, batch, batch),
+                     in_grad_placements=(xp, dtp, a_grad, bc_grad, bc_grad),
+                     device_mesh=mesh)(x, dt, A, Bm, Cm)
+
+
 def ssd_intra_ref(xc, dtc, cum, Bc, Cc):
     """Intra-chunk quadratic term, the plain version of kernel K5.
 
@@ -183,10 +241,10 @@ def ssm_block(p: Params, h: torch.Tensor, *, d_inner: int, d_state: int,
     Cm = xBC[..., d_inner + d_state:]
     dt = F.softplus(dt + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    xh = shard_act(x.reshape(B, T, n_heads, head_dim), ("batch", "seq", "heads", None))
-    y, s_fin = ssd_chunked(xh, dt, A, Bm, Cm, chunk, use_kernels=use_kernels)
+    xh = shard_act(split_last(x, n_heads, head_dim), ("batch", "seq", "heads", None))
+    y, s_fin = ssd(xh, dt, A, Bm, Cm, chunk, use_kernels=use_kernels)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, T, d_inner).to(h.dtype)
+    y = merge_last(y).to(h.dtype)
     y = rms_norm(y * F.silu(z.float()).to(h.dtype), p["norm_w"], norm_eps)
     out = linear(y, p["out_proj"])
     if return_state:
@@ -229,14 +287,14 @@ def ssm_decode_step(p: Params, h: torch.Tensor, state: Dict[str, torch.Tensor], 
     Cm = xBC[..., d_inner + d_state:]
     dt = F.softplus(dt + p["dt_bias"].float())                       # (B,H)
     A = -torch.exp(p["A_log"].float())
-    xh = x.reshape(B, n_heads, head_dim).float()
+    xh = split_last(x, n_heads, head_dim).float()
 
     decay = torch.exp(A[None] * dt)                                  # (B,H)
     upd = (dt[:, :, None] * xh)[..., None] * Bm[:, None, None, :]
     s = state["s"] * decay[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", s, Cm)
     y = y + p["D"].float()[None, :, None] * xh
-    y = y.reshape(B, d_inner).to(h.dtype)
+    y = merge_last(y).to(h.dtype)
     y = rms_norm(y * F.silu(z.float()).to(h.dtype), p["norm_w"], norm_eps)
     out = linear(y, p["out_proj"])[:, None, :]
     return out, {"s": s, "conv": new_conv}

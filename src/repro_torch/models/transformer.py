@@ -22,8 +22,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
-    act_dtype_cast, dense_init, embed_init, layer, linear, rms_norm, shard_act,
-    unstack,
+    act_dtype_cast, dense_init, embed_init, embed_lookup, layer, linear,
+    replicate_dims, rms_norm, shard_act, unstack,
 )
 
 Params = Dict[str, Any]
@@ -87,7 +87,7 @@ def _block_apply(cfg: ArchConfig, p: Params, h: torch.Tensor, *,
 
 
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    h = act_dtype_cast(params["embed"][tokens])
+    h = act_dtype_cast(embed_lookup(params["embed"], tokens))
     if cfg.scale_embed:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
     return shard_act(h, ("batch", "seq", "embed"))
@@ -95,7 +95,10 @@ def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch
 
 def lm_head(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    # a tied table is gathered over its d dim as its lookup gathers it
+    # (``embed_lookup``), so the two uses' gradients meet in one placement
+    w = (replicate_dims(params["embed"], [1]).T if cfg.tie_embeddings
+         else params["lm_head"])
     logits = linear(h, w)
     return shard_act(logits, ("batch_head", "seq", "vocab"))
 

@@ -24,9 +24,10 @@ stage's ranks (:func:`mesh_from_intra_op`), and the plan's shard ratios
 become integer per-shard batch sizes (largest-remainder apportionment —
 sizes always sum to the batch).  Invariants: ``shard_ratios`` sum to 1
 (validated here, units dimensionless); the degenerate ``degree == 1`` plan
-lowers to a 1x1 mesh, i.e. a no-op.  Activations are not placed: the
-port's model code runs on local tensors (``models.common.shard_act``), and
-the act rules here are the reference's, for the launcher's dry run.
+lowers to a 1x1 mesh, i.e. a no-op.  The act rules here are the
+reference's; ``models.common.shard_act`` places activations by them on
+DTensors, and :meth:`NamedSharding.place` builds a DTensor of a ``meta`` or
+fake leaf from its shard shape alone (the launcher's dry run).
 """
 from __future__ import annotations
 
@@ -260,12 +261,42 @@ class NamedSharding:
         return distribute_tensor(tensor, self.mesh, self.placements(),
                                  src_data_rank=None)
 
+    def place(self, struct, device=None):
+        """A DTensor of ``struct``'s global shape and dtype (``struct`` is
+        anything with ``.shape`` and ``.dtype``: a ``meta`` tensor, a fake
+        one) whose local shard is ``torch.empty`` of :meth:`shard_shape` on
+        ``device`` (default ``struct.device``).  Under the caller's
+        ``FakeTensorMode`` the shard is fake: no global tensor is built
+        and nothing is allocated.  The contents are undefined."""
+        import torch
+        from torch.distributed.tensor import DTensor
+
+        shape = tuple(struct.shape)
+        local = torch.empty(self.shard_shape(shape), dtype=struct.dtype,
+                            device=struct.device if device is None else device)
+        stride = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shape[i + 1]
+        return DTensor.from_local(local, self.mesh, self.placements(),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=tuple(stride))
+
 
 def fitted_shardings(mesh, spec_tree, struct_tree) -> Any:
     """:class:`NamedSharding` tree with per-leaf divisibility fitting;
     ``struct_tree`` holds anything with ``.shape``."""
     return tree_map(lambda sp, st: NamedSharding(mesh, fit_spec(mesh, sp, st.shape)),
                     spec_tree, struct_tree)
+
+
+def batch_shardings(mesh, batch_tree, batch_axis) -> Any:
+    """``Shard(0)`` over ``batch_axis`` (a mesh dim name or a tuple of
+    them) for every leaf of a batch, replicated elsewhere: the reference
+    launcher's ``P(batch_axis, None, ...)``, fitted (a batch smaller than
+    the axes, one microbatch of a multi-pod cell, say, is replicated over
+    the axes that do not divide it)."""
+    return tree_map(lambda x: NamedSharding(mesh, fit_spec(
+        mesh, (batch_axis, *([None] * (len(x.shape) - 1))), x.shape)), batch_tree)
 
 
 def param_shardings(params_tree, mesh) -> Any:

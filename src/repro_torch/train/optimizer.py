@@ -10,6 +10,12 @@ temporaries stay within about two of the largest leaf (gpt-2b's stacked MLP
 input weight is 3.36 GB in f32).  The step, lr, clip scale and grad norm
 stay 0-d tensors on the parameters' device, so an update never waits on
 the card.
+
+On DTensor params the state keeps their placements (``zeros_like``; the
+step counter is replicated), and ``update`` first brings each gradient to
+its state's placement, one collective per leaf (a ``Partial`` gradient is
+all-reduced, or reduce-scattered where the state is sharded), before the
+norm and the update read it.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 
 @dataclass(frozen=True)
@@ -84,14 +91,32 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _step_counter(like: torch.Tensor) -> torch.Tensor:
+    """A 0-d int32 zero on ``like``'s device; replicated over its mesh when
+    ``like`` is a DTensor."""
+    zero = torch.zeros((), dtype=torch.int32, device=like.device)
+    if isinstance(like, DTensor):
+        mesh = like.device_mesh
+        return distribute_tensor(zero, mesh, [Replicate()] * mesh.ndim)
+    return zero
+
+
+def _placed_like(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``g`` redistributed to ``ref``'s placements when both are DTensors
+    and they differ; else ``g``."""
+    if (isinstance(g, DTensor) and isinstance(ref, DTensor)
+            and tuple(g.placements) != tuple(ref.placements)):
+        return g.redistribute(ref.device_mesh, ref.placements)
+    return g
+
+
 def make_adamw(cfg: OptimizerConfig):
     def init(params):
         def zeros(p):
-            return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+            return torch.zeros_like(p, dtype=cfg.state_dtype)
         master = (tree_map(lambda p: p.detach().float().clone(), params)
                   if cfg.master_weights else None)
-        dev = tree_leaves(params)[0].device
-        return OptState(torch.zeros((), dtype=torch.int32, device=dev),
+        return OptState(_step_counter(tree_leaves(params)[0]),
                         tree_map(zeros, params), tree_map(zeros, params), master)
 
     @torch.no_grad()
@@ -100,6 +125,7 @@ def make_adamw(cfg: OptimizerConfig):
         """Consumes ``grads`` (their f32 leaves are scaled in place).
         ``grad_norm`` replaces ``global_norm(grads)`` for clipping where
         ``grads`` is one part of a larger tree (a pipeline stage's)."""
+        grads = tree_map(_placed_like, grads, state.mu)
         step = state.step + 1
         gn = global_norm(grads) if grad_norm is None else grad_norm
         scale = (torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)

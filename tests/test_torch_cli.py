@@ -6,7 +6,8 @@ artifacts and text (the controller's search clock is the same fake one on
 both sides); ``kbench merge``/``show`` the same table bytes and listing;
 ``kbench collect --device cpu`` the reference's cells (timed on the plain
 versions); ``train --plan ... --smoke --device cpu`` the reference's
-checkpoint layout.  ``dryrun`` is not a subcommand of the port.
+checkpoint layout.  ``dryrun`` forwards to the port's launcher
+(``test_torch_isolation.py``, ``test_torch_dryrun.py``).
 """
 import json
 import os

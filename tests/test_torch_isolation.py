@@ -4,6 +4,7 @@ its entry points default to CUDA and raise without a card, and every family
 asked; the VLM and audio families train through ``fit(train_step=...,
 state=...)`` with a step that adds their frontend input, and ``fit``
 without one says so."""
+import json
 import os
 import subprocess
 import sys
@@ -98,11 +99,13 @@ CONTROL_PLANE = [
     "repro_torch.api.cli",
 ]
 PIPELINE_SLICE = ["repro_torch.parallel.staging", "repro_torch.parallel.pipeline"]
+SHARDED_SLICE = ["repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                 "repro_torch.models.common", "repro_torch.serve.step"]
 
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + SSM_SLICE + MOE_SLICE
                          + HYBRID_SLICE + CROSS_SLICE + KBENCH_SLICE
-                         + CONTROL_PLANE + PIPELINE_SLICE)
+                         + CONTROL_PLANE + PIPELINE_SLICE + SHARDED_SLICE)
 def test_training_slice_module_imports_without_jax_or_reference(module):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
@@ -359,16 +362,22 @@ def test_cli_help_runs_without_jax_or_reference():
     res = _cli("--help")
     assert res.returncode == 0, res.stderr
     for cmd in ("plan", "simulate", "train", "replay", "trace", "migrate",
-                "kbench", "chaos"):
+                "kbench", "chaos", "dryrun"):
         assert cmd in res.stdout
-    assert "dryrun" not in res.stdout
 
 
-def test_cli_rejects_dryrun():
-    """``dryrun`` needs the launcher, which is not ported yet."""
-    res = _cli("dryrun", "--arch", "gpt-2b")
-    assert res.returncode == 2
-    assert "invalid choice: 'dryrun'" in res.stderr
+def test_cli_rejects_dryrun(tmp_path):
+    """``dryrun`` forwards to the port's launcher (the name stays from
+    when the parser rejected it): a reduced cell in a fake world of 256
+    ranks exits 0 and writes its record, with ``jax`` and ``repro``
+    blocked."""
+    res = _cli("dryrun", "--arch", "gpt-2b", "--shape", "decode_32k",
+               "--mesh", "single", "--reduced", "--out", str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "[gpt-2b-smoke x decode_32k x single] OK" in res.stdout
+    with open(tmp_path / "gpt-2b-smoke_decode_32k_single.json") as f:
+        rec = json.load(f)
+    assert rec["ok"] and rec["memory"]["argument_bytes"] > 0
 
 
 def test_stage_mesh_raises_without_a_process_group():

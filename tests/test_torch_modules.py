@@ -256,7 +256,7 @@ def test_prefill_step_is_the_full_forward():
     jstep, jmodel, _ = jmake(cfg)
     jp = jmodel.init(jax.random.PRNGKey(22))
     tokens = np.random.default_rng(23).integers(0, cfg.vocab_size, (2, 12))
-    tstep, _ = make_prefill_step(cfg, device="cpu")
+    tstep, _, _ = make_prefill_step(cfg, device="cpu")
     _close(tstep(_tree(jp), {"tokens": torch.from_numpy(tokens)}),
            jstep(jp, {"tokens": jnp.asarray(tokens)}), 5e-4)
 
