@@ -256,6 +256,20 @@ each (``{"phase": ...}``):
             whose local shape is its ``shard_shape``, 0 launches of K1-K5
             (the reference's sharded path runs its jnp path); step seconds,
             peak memory and the ``nvidia-smi`` line in its line;
+  pipeline_sharded  (in the same group, after ``sharded``) one step of
+            ``make_pipeline_train_step(mesh=...)`` of full-width gpt-2b on
+            a (1, 1, 1) ``("pod", "data", "model")`` cuda mesh: one stage on
+            DTensors over its ``(data, model)`` sub-mesh, 4 f32 microbatches
+            of 2 x 1024, ``use_kernels=False``, the staging and the AdamW
+            state cut from the same step-3 host tree by ``place_stage``;
+            then the local transport's step (S = 1) on plain CUDA tensors
+            from the same tree and batch.  Gates: loss and grad norm
+            bit-equal or within 1e-6 relative, the params, ``mu`` and ``nu``
+            the two updates leave within 1e-5 of each other per leaf
+            (relative to the update), every leaf a DTensor on the sub-mesh
+            whose local shape is its ``shard_shape``, 0 launches of K1-K5.
+            One stage has no shift: the NCCL send and receive between
+            stages are not exercised on one card (the line says so);
   dryrun    the launcher's dry run (``launch.dryrun.run_cell``) at full
             published size in a fake process group of 256 ranks (512 for
             ``multi``) on the host, nothing on the card: a dense train cell
@@ -3145,6 +3159,8 @@ def run_mesh(restored):
         free_memory()
         comp = mesh_compression(tree)
         run_sharded(mesh, tree, cfg)
+        free_memory()
+        run_pipeline_sharded(tree, cfg)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
@@ -3326,6 +3342,181 @@ def run_sharded(mesh, tree, cfg):
     if sorted(update_rel) != ["mu", "nu", "params"] or \
             max(update_rel.values()) > SHARDED_UPDATE_TOL:
         raise SystemExit(f"sharded AdamW update against the plain one: {update_rel}")
+    return fields
+
+
+def placement_faults(trees, shardings, sub):
+    """(leaves whose local shape is not their ``shard_shape``, leaves that
+    are not DTensors on ``sub``) of named trees and their
+    :class:`NamedSharding` trees, as dotted paths."""
+    from torch.distributed.tensor import DTensor
+
+    mismatch, not_dtensor = [], []
+    for name, tree in trees.items():
+        for path, x in _leaves(tree):
+            s = _get(shardings[name], path)
+            if not (isinstance(x, DTensor) and x.device_mesh == sub):
+                not_dtensor.append(".".join((name,) + path))
+            elif tuple(x.to_local().shape) != s.shard_shape(tuple(x.shape)):
+                mismatch.append(".".join((name,) + path))
+    return mismatch, not_dtensor
+
+
+def update_sizes(res, updated, before):
+    """Per kind (params, ``mu``, ``nu``), the largest over the leaves of
+    |sharded - plain| / |plain - before|: two updates' difference against
+    the update's own size.  ``res`` holds the plain step's trees on the
+    card, ``updated`` the sharded step's leaves on the host by (kind,
+    *path), ``before`` the host trees before the step."""
+    out = {}
+    for kind, tree in res.items():
+        for path, x in _leaves(tree):
+            if x.numel():
+                diff = torch.linalg.vector_norm(x - updated[(kind,) + path].to(x.device))
+                moved = torch.linalg.vector_norm(x - _get(before[kind], path).to(x.device))
+                out[kind] = max(out.get(kind, 0.0), diff.item() / max(moved.item(), 1e-30))
+    return out
+
+
+# the pipeline on DTensors: full-width gpt-2b, one stage, the `sharded`
+# phase's batch of 8 x 1024 in PIPE_SHARDED_MB f32 microbatches of 2
+PIPE_SHARDED_MB = 4
+
+
+def run_pipeline_sharded(tree, cfg):
+    """The pipeline's stage on DTensors on the card:
+    ``make_pipeline_train_step(mesh=...)`` of full-width gpt-2b on a
+    (1, 1, 1) ``("pod", "data", "model")`` cuda mesh (the ``mesh`` phase's
+    one-rank NCCL group), one stage, ``PIPE_SHARDED_MB`` f32 microbatches
+    of 2 x 1024, ``use_kernels=False``, its params and AdamW state the
+    ``train`` phase's step-3 checkpoint (the host tree ``run_mesh`` holds)
+    staged and cut by ``place_stage``, one step, against the same step of
+    the local transport (S = 1) on plain CUDA tensors from the same tree and
+    batch.  Raises on a failed gate: loss and grad norm bit-equal or within
+    ``SHARDED_REL_TOL``; every leaf of the staging and the state a DTensor
+    on the stage's sub-mesh with the local shape of its ``shard_shape``;
+    the params, ``mu`` and ``nu`` that the two updates leave within
+    ``SHARDED_UPDATE_TOL`` of each other per leaf, relative to the size of
+    the update; no kernel launched.  With one stage there is no shift: the
+    NCCL send and receive between stages stay unexercised on one card."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.staging import build_staging
+    from repro_torch.train.optimizer import (
+        OptimizerConfig, OptState, tree_leaves, tree_map,
+    )
+    from repro_torch.train.step import (
+        make_pipeline_train_step, place_stage, stage_submesh,
+    )
+
+    B, T = GPT2B_TRAIN[0], GPT2B_TRAIN[1]
+    opt_cfg = OptimizerConfig(warmup_steps=TRAIN_STEPS, total_steps=TRAIN_STEPS)
+    cuda = torch.device("cuda")
+    host = tree_map(lambda x: torch.from_numpy(np.asarray(x)), tree["params"])
+    state = tree["opt_state"]
+
+    def staged(t):
+        """A model-layout tree as the one-stage staging's {staged, shared}."""
+        st = build_staging(cfg, 1, tree_map(lambda x: torch.from_numpy(np.asarray(x)), t),
+                           act_dtype=torch.float32, use_kernels=False)
+        return {"staged": st.staged, "shared": st.shared}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen, device="cuda")
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device_type="cuda")
+    sub, _ = stage_submesh(mesh)
+    out = {}
+
+    def one(name, step, st, opt):
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new_staged, new_shared, opt, m = step(st.staged, st.shared, st.consts, opt, batch)
+        loss, gn = (float(x.full_tensor() if isinstance(x, DTensor) else x)
+                    for x in (m["total_loss"], m["grad_norm"]))
+        torch.cuda.synchronize()
+        out[name] = {"step_s": time.perf_counter() - t0, "loss": loss,
+                     "grad_norm": gn, "launches": dict(LAUNCHES),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return {"params": {"staged": new_staged, "shared": new_shared},
+                "mu": opt.mu, "nu": opt.nu}
+
+    t0 = time.perf_counter()
+    step, st, _, shardings = make_pipeline_train_step(
+        cfg, opt_cfg, n_stages=1, n_microbatches=PIPE_SHARDED_MB,
+        act_dtype=torch.float32, params=host, use_kernels=False, device="cuda",
+        mesh=mesh)
+    specs = {k: shardings[f"{k}_specs"] for k in ("staged", "shared")}
+    opt = OptState(distribute_tensor(torch.tensor(int(np.asarray(state.step)),
+                                                  dtype=torch.int32, device=cuda),
+                                     sub, [Replicate()] * sub.ndim),
+                   place_stage(staged(state.mu), specs, mesh, cuda),
+                   place_stage(staged(state.nu), specs, mesh, cuda))
+    place_s = time.perf_counter() - t0
+    both = {"staged": shardings["staged"], "shared": shardings["shared"]}
+    mismatch, not_dtensor = placement_faults(
+        {"staged": st.staged, "shared": st.shared, "consts": st.consts,
+         "mu": opt.mu, "nu": opt.nu},
+        {**{k: shardings[k] for k in ("staged", "shared", "consts")},
+         "mu": both, "nu": both}, sub)
+    res = one("sharded", step, st, opt)
+    # what the update left, on the host
+    updated = {(kind,) + path: (x.to_local() if isinstance(x, DTensor) else x).cpu()
+               for kind, tr in res.items() for path, x in _leaves(tr)}
+    n_leaves = len(tree_leaves(st.staged)) + len(tree_leaves(st.shared))
+    del step, st, opt, res
+    free_memory()
+
+    step, st, _, _ = make_pipeline_train_step(
+        cfg, opt_cfg, n_stages=1, n_microbatches=PIPE_SHARDED_MB,
+        act_dtype=torch.float32, params=host, use_kernels=False, device="cuda")
+    opt = OptState(torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                device=cuda),
+                   tree_map(lambda x: x.to(cuda, copy=True), staged(state.mu)),
+                   tree_map(lambda x: x.to(cuda, copy=True), staged(state.nu)))
+    res = one("plain", step, st, opt)
+    update_rel = update_sizes(res, updated, {
+        "params": staged(tree["params"]), "mu": staged(state.mu),
+        "nu": staged(state.nu)})
+    del step, st, opt, res, updated
+    free_memory()
+    s_, p_ = out["sharded"], out["plain"]
+    rel = {k: abs(s_[k] - p_[k]) / max(abs(p_[k]), 1e-30) for k in ("loss", "grad_norm")}
+    bit_equal = s_["loss"] == p_["loss"] and s_["grad_norm"] == p_["grad_norm"]
+    launched = {k: v for r in (s_, p_) for k, v in r["launches"].items() if v}
+    fields = dict(arch=cfg.arch_id, stages=1, microbatches=PIPE_SHARDED_MB,
+                  batch=B, seq_len=T, dtype="float32", mesh_shape=list(mesh.shape),
+                  mesh_dims=list(mesh.mesh_dim_names), submesh_shape=list(sub.shape),
+                  mesh_device=mesh.device_type, use_kernels=False,
+                  act_rules="train_act_rules", ckpt_step=int(np.asarray(state.step)),
+                  nccl_shift_exercised=False, leaves=n_leaves, place_s=place_s,
+                  local_vs_shard_shape_mismatch=mismatch, not_dtensor=not_dtensor,
+                  step_s=s_["step_s"], step_s_plain=p_["step_s"],
+                  loss=s_["loss"], loss_plain=p_["loss"],
+                  grad_norm=s_["grad_norm"], grad_norm_plain=p_["grad_norm"],
+                  rel_diff=rel, bit_equal=bit_equal, tol=SHARDED_REL_TOL,
+                  update_rel=update_rel, update_tol=SHARDED_UPDATE_TOL,
+                  launches=s_["launches"], launches_plain=p_["launches"],
+                  peak_mem_gb=s_["peak_mem_gb"], peak_mem_gb_plain=p_["peak_mem_gb"],
+                  nvidia_smi=nvidia_smi_line())
+    emit("pipeline_sharded", **fields)
+    if mismatch or not_dtensor:
+        raise SystemExit(f"pipeline_sharded placement: {mismatch} {not_dtensor}")
+    if launched:
+        raise SystemExit(f"pipeline_sharded phase launched kernels: {launched}")
+    if not (math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])):
+        raise SystemExit(f"pipeline_sharded step not finite: {s_}")
+    if not bit_equal and max(rel.values()) > SHARDED_REL_TOL:
+        raise SystemExit(f"pipeline_sharded step against the plain one: {rel}")
+    if sorted(update_rel) != ["mu", "nu", "params"] or \
+            max(update_rel.values()) > SHARDED_UPDATE_TOL:
+        raise SystemExit(f"pipeline_sharded AdamW update against the plain one: "
+                         f"{update_rel}")
     return fields
 
 

@@ -257,7 +257,7 @@ def reshard(tree, shardings):
         if isinstance(s, torch.device):
             return t.to(s, copy=True)
         if hasattr(s, "distribute"):
-            return s.distribute(t.clone() if t.device.type == s.mesh.device_type else t)
+            return s.distribute(t)
         raise TypeError(f"reshard: {SEP.join(path) or 'the root'} has sharding "
                         f"{s!r}, neither a torch.device nor a NamedSharding")
 

@@ -95,8 +95,9 @@ from repro_torch.train.step import layout_specs, make_train_step
 
 OUT_DIR = "results/dryrun_torch"
 PIPELINE_ITEM = ("the pipelined multi-pod train cells wait for ROADMAP.md "
-                 "Queue 1 item 8 (make_pipeline_train_step(abstract=True), "
-                 "a stage over its (data, model) sub-mesh)")
+                 "Queue 1 item 8 (make_pipeline_train_step(abstract=True) "
+                 "and these cells traced in a fake world; a stage already "
+                 "computes over its (data, model) sub-mesh)")
 
 
 def _knob(name: str, default: str) -> str:

@@ -94,6 +94,39 @@ def sharded_execution(mesh, rules: Dict[str, Optional[object]]):
         yield
 
 
+def recompute_context():
+    """``context_fn`` for ``torch.utils.checkpoint``: the recompute runs
+    with the forward's ambient mesh and activation rules.  The backward of
+    a CUDA op runs on autograd's device thread, where this module's
+    thread-local context is unset and :func:`shard_act` would place
+    nothing.  DTensor's implicit replication is process-wide and still on
+    there (the backward runs inside the forward's
+    :func:`sharded_execution`), so it is not entered again: leaving it
+    would turn it off for the rest of the step."""
+    mesh, rules = current_mesh(), current_rules()
+    return contextlib.nullcontext(), _forward_context(mesh, rules)
+
+
+@contextlib.contextmanager
+def _forward_context(mesh, rules):
+    if rules is None:
+        yield
+        return
+    with ambient_mesh(mesh), activation_sharding(rules):
+        yield
+
+
+def checkpoint(fn, *args, **kwargs):
+    """``torch.utils.checkpoint.checkpoint`` of ``fn(*args, **kwargs)``,
+    non-reentrant, its recompute in the forward's sharding context
+    (:func:`recompute_context`): every checkpoint of the models and the
+    pipeline goes through here."""
+    from torch.utils.checkpoint import checkpoint as _checkpoint
+
+    return _checkpoint(fn, *args, use_reentrant=False,
+                       context_fn=recompute_context, **kwargs)
+
+
 def shard_act(x: torch.Tensor, names: Sequence[Optional[str]]) -> torch.Tensor:
     """Redistribute the DTensor ``x`` to the placements that ``names``
     (one logical axis name or None per dim) map to through the rules:
@@ -431,6 +464,8 @@ def _vocab_parallel_ce(logits, labels):
     labels = on_mesh(labels, mesh).redistribute(mesh, rest)
     v_local = logits.to_local().shape[-1]
     lo = shard_index(mesh, logits.placements, last) * v_local
+    # mesh dims of size 1 leave the vocab whole: the plain logsumexp
+    vdims = [i for i in vdims if mesh.size(i) > 1]
 
     def over_vocab(op):
         return [Partial(op) if i in vdims else p for i, p in enumerate(rest)]

@@ -17,14 +17,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (
-    dense_init, embed_init, embed_lookup, layer, rms_norm, shard_act, unstack,
+    checkpoint, dense_init, embed_init, embed_lookup, layer, rms_norm, shard_act,
+    unstack,
 )
 
 Params = Dict[str, Any]
@@ -81,7 +81,7 @@ def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor, *,
     h = frames
     for p in unstack(params["enc_blocks"], cfg.enc_layers):
         if remat:
-            h = checkpoint(_enc_block, cfg, p, h, use_kernels, use_reentrant=False)
+            h = checkpoint(_enc_block, cfg, p, h, use_kernels)
         else:
             h = _enc_block(cfg, p, h, use_kernels)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
@@ -131,8 +131,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     h = embed_positions(params, batch["tokens"])
     for p in unstack(params["dec_blocks"], cfg.n_layers):
         if remat:
-            h = checkpoint(_dec_block, cfg, p, h, memory, use_kernels,
-                           use_reentrant=False)
+            h = checkpoint(_dec_block, cfg, p, h, memory, use_kernels)
         else:
             h = _dec_block(cfg, p, h, memory, use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

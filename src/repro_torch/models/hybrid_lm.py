@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -25,7 +24,7 @@ from repro_torch.models import mamba_lm
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (
-    dense_init, embed_init, layer, linear, rms_norm, unstack,
+    checkpoint, dense_init, embed_init, layer, linear, rms_norm, unstack,
 )
 from repro_torch.models.ssm import ssm_decode_step, ssm_init_state
 
@@ -106,12 +105,11 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
                  unstack(params["adapt_out"], n_apps))
     for pg, a_in, a_out in groups:
         args = (cfg, pg, params["shared"], a_in, a_out, h, use_kernels)
-        h = (checkpoint(_group_apply, *args, use_reentrant=False) if remat
+        h = (checkpoint(_group_apply, *args) if remat
              else _group_apply(*args))
     for p in unstack(params["tail"], _n_tail(cfg)):
         if remat:
-            h = checkpoint(mamba_lm._block_apply, cfg, p, h, use_kernels,
-                           use_reentrant=False)
+            h = checkpoint(mamba_lm._block_apply, cfg, p, h, use_kernels)
         else:
             h = mamba_lm._block_apply(cfg, p, h, use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

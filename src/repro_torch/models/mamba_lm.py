@@ -11,11 +11,12 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import dense_init, embed_init, layer, rms_norm, unstack
+from repro_torch.models.common import (
+    checkpoint, dense_init, embed_init, layer, rms_norm, unstack,
+)
 from repro_torch.models.ssm import (
     ssm_block, ssm_decode_step, ssm_init, ssm_init_state,
 )
@@ -60,8 +61,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     h = tf.embed_tokens(cfg, params, batch["tokens"])
     for p in unstack(params["blocks"], cfg.n_layers):
         if remat:
-            h = checkpoint(_block_apply, cfg, p, h, use_kernels,
-                           use_reentrant=False)
+            h = checkpoint(_block_apply, cfg, p, h, use_kernels)
         else:
             h = _block_apply(cfg, p, h, use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

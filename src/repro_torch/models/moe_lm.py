@@ -12,12 +12,13 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import dense_init, embed_init, layer, rms_norm, unstack
+from repro_torch.models.common import (
+    checkpoint, dense_init, embed_init, layer, rms_norm, unstack,
+)
 from repro_torch.models.moe import moe_block, moe_init
 
 Params = Dict[str, Any]
@@ -70,8 +71,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p in unstack(params["blocks"], cfg.n_layers):
         if remat:
-            h, a = checkpoint(_block_apply, cfg, p, h, use_kernels,
-                              use_reentrant=False)
+            h, a = checkpoint(_block_apply, cfg, p, h, use_kernels)
         else:
             h, a = _block_apply(cfg, p, h, use_kernels)
         aux = aux + a

@@ -16,13 +16,12 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
-    act_dtype_cast, dense_init, embed_init, embed_lookup, layer, linear,
+    act_dtype_cast, checkpoint, dense_init, embed_init, embed_lookup, layer, linear,
     replicate_dims, rms_norm, shard_act, unstack,
 )
 
@@ -123,8 +122,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     seg = cfg.local_global_ratio + 1 if cfg.local_global_ratio else 1
     for s in range(0, cfg.n_layers, seg):
         if remat:
-            h = checkpoint(_apply_layers, cfg, layers[s:s + seg], h, use_kernels,
-                           use_reentrant=False)
+            h = checkpoint(_apply_layers, cfg, layers[s:s + seg], h, use_kernels)
         else:
             h = _apply_layers(cfg, layers[s:s + seg], h, use_kernels)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -17,14 +17,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (
-    dense_init, embed_init, layer, rms_norm, unstack,
+    checkpoint, dense_init, embed_init, layer, rms_norm, unstack,
 )
 
 Params = Dict[str, Any]
@@ -112,7 +111,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor], *,
                  unstack(params["cross_blocks"], n_groups))
     for pg_self, pg_cross in groups:
         args = (cfg, pg_self, pg_cross, h, memory, use_kernels)
-        h = (checkpoint(_group_apply, *args, use_reentrant=False) if remat
+        h = (checkpoint(_group_apply, *args) if remat
              else _group_apply(*args))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return tf.lm_head(cfg, params, h), aux

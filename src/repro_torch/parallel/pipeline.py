@@ -44,15 +44,23 @@ Two transports run the same slot loop:
   (:meth:`DistributedTransport.sum_shared_grads`), the transpose of their
   replication, and takes the clipping norm over every rank
   (:meth:`DistributedTransport.grad_norm`).
+
+A stage may compute on DTensors over a ``(data, model)`` sub-mesh (the
+reference's GSPMD inside its ``shard_map``): the group is then a ``pod``
+group, the ranks of one ``(data, model)`` coordinate, and what crosses it
+is local tensors at placements both ends agree on.  The loss sums
+accumulate as DTensors (a ``Partial`` sum stays partial) and are reduced
+over the sub-mesh once, in :meth:`DistributedTransport.total`.
 """
 from __future__ import annotations
 
 from typing import Any, List
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.models.common import unstack
+from repro_torch.models.common import checkpoint, unstack
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
 
 
@@ -82,7 +90,22 @@ class LocalTransport:
 
 
 def _square_sum(tree) -> torch.Tensor:
-    return sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    """The sum of the squares of a tree's leaves: a plain 0-d tensor, the
+    same on every rank of a DTensor leaf's mesh (each leaf's sum is reduced
+    over the mesh dims that shard it, and counted once over the rest)."""
+    def one(x):
+        s = torch.sum(torch.square(x.float()))
+        return s.full_tensor() if isinstance(s, DTensor) else s
+    return sum(one(x) for x in tree_leaves(tree))
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated over its whole mesh (a ``Partial`` sum reduced,
+    shards gathered); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 class _AllSum(torch.autograd.Function):
@@ -114,10 +137,46 @@ class _Shift(torch.autograd.Function):
         return ctx.transport.permute(g, reverse=True), None
 
 
+def _as_local(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` applied to the local tensor of the DTensor ``x`` (differentiably:
+    ``to_local`` / ``from_local``), the result rebuilt with ``x``'s
+    placements; ``fn(x)`` for a plain tensor.  The backward of
+    ``from_local`` brings the cotangent to those placements before ``fn``'s
+    backward sees its local tensor: a ``Partial`` cotangent is reduced, never
+    passed on as a local share."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def _boundary(x: torch.Tensor) -> torch.Tensor:
+    """A carry leaf at the placements both sides of a shift agree on: the
+    residual stream ``(batch, seq, embed)`` placed by the training rules, a
+    scalar replicated; a plain tensor as it is."""
+    if not isinstance(x, DTensor) or x.dim() != 3:
+        return replicated(x)
+    rules = shd.train_act_rules()
+    mesh = x.device_mesh
+    spec = shd.fit_spec(mesh, tuple(rules[n] for n in ("batch", "seq", "embed")),
+                        x.shape)
+    to = shd.NamedSharding(mesh, spec).placements()
+    return x if tuple(x.placements) == to else x.redistribute(mesh, to)
+
+
 class DistributedTransport:
     """One stage per rank of ``group`` (the default group when ``None``):
     rank r of the group runs stage r.  ``torch.distributed`` must be
-    initialised by the caller."""
+    initialised by the caller.
+
+    A stage may compute on DTensors over the ``(data, model)`` sub-mesh of
+    a ``("pod", "data", "model")`` mesh, ``group`` then being the mesh's
+    ``pod`` group: the ranks that share this rank's ``(data, model)``
+    coordinate, one per stage, each holding the same shards of its stage's
+    tensors.  The shift moves a DTensor carry's local tensors, each first
+    brought to the stage boundary's fixed placements (the training rules'
+    ``(batch, seq, embed)``; a scalar replicated), and the sums and norms
+    reduce over the sub-mesh before they reduce over ``group``."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -157,10 +216,13 @@ class DistributedTransport:
         return out
 
     def shift(self, carries: List[Any]) -> List[Any]:
-        return [tree_map(lambda x: _Shift.apply(x, self), carries[0])]
+        return [tree_map(lambda x: _as_local(
+            _boundary(x), lambda t: _Shift.apply(t, self)), carries[0])]
 
     def total(self, x: torch.Tensor) -> torch.Tensor:
-        return _AllSum.apply(x, self)
+        """The sum over the stages of a value each stage holds whole (a
+        DTensor replicated over the sub-mesh, or a plain tensor)."""
+        return _as_local(replicated(x), lambda t: _AllSum.apply(t, self))
 
     def grad_norm(self, grads) -> torch.Tensor:
         """Global norm over every rank: each stage's squares are summed over
@@ -170,7 +232,15 @@ class DistributedTransport:
         return torch.sqrt(_square_sum(grads["shared"]) + staged)
 
     def sum_shared_grads(self, grads) -> None:
+        """Sums the shared gradients over the stages, in place.  DTensor
+        gradients must be at their parameters' placements (no ``Partial``):
+        each rank then adds the same shard as its peers in ``group``."""
         for g in tree_leaves(grads):
+            if isinstance(g, DTensor):
+                if any(p.is_partial() for p in g.placements):
+                    raise ValueError(f"a Partial gradient ({g.placements}) "
+                                     "is summed over the stages as a share")
+                g = g.to_local()
             self.dist.all_reduce(g, group=self.group)
 
 
@@ -198,7 +268,7 @@ def pipeline_loss_fn(spec, n_microbatches: int, transport=None):
         layers = [spec.layers(st, c) for st, c in
                   zip(unstack(staged, len(stages)), unstack(consts, len(stages)))]
         carries = [spec.zero_carry(io) for _ in stages]
-        dev = io["h_in"].device
+        dev = io["h_in"][0].device
         sums = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(3)]
         n_slots = n_mb + S - 1
 
@@ -212,7 +282,7 @@ def pipeline_loss_fn(spec, n_microbatches: int, transport=None):
                 # stage s holds microbatch t - s (see the module docstring)
                 carries[j], head = checkpoint(
                     _slot, spec, layers[j], shared, carries[j], io_at(t - s),
-                    io_out, use_reentrant=False)
+                    io_out)
                 valid = float(t >= S - 1) * float(s == S - 1)
                 sums = [acc + x * valid for acc, x in zip(sums, head)]
             if S > 1 and t < n_slots - 1:   # the last slot's carries are dropped

@@ -250,16 +250,37 @@ class NamedSharding:
             out[d] //= n
         return tuple(out)
 
-    def distribute(self, tensor):
-        """``tensor`` (the whole of it, the same on every rank, e.g. as
-        each rank restores it from one checkpoint) as a DTensor holding
-        this rank's shard on the mesh's device; no data moves between
-        ranks."""
-        from torch.distributed.tensor import distribute_tensor
+    def distribute(self, tensor, device=None):
+        """``tensor`` (the whole of it, the same on every rank, on any
+        device: the host's, say, as each rank restores it from one
+        checkpoint) as a DTensor whose local tensor is this rank's shard,
+        cut where ``tensor`` lies and copied to ``device`` (default: the
+        mesh's device type; a ``meta`` tensor stays meta).  The whole
+        tensor never reaches ``device``, no data moves between ranks, and
+        the shard shares no storage with ``tensor``."""
+        import torch
+        from torch.distributed.tensor import DTensor, Shard
 
-        self.shard_shape(tensor.shape)
-        return distribute_tensor(tensor, self.mesh, self.placements(),
-                                 src_data_rank=None)
+        shape = tuple(tensor.shape)
+        local_shape = self.shard_shape(shape)
+        placements = self.placements()
+        coord = self.mesh.get_coordinate()
+        if device is None:
+            device = "meta" if tensor.is_meta else self.mesh.device_type
+        part = tensor.detach()
+        for d in range(len(shape)):
+            idx = 0                      # major to minor, as DTensor shards
+            for i, p in enumerate(placements):
+                if isinstance(p, Shard) and p.dim == d:
+                    idx = idx * self.mesh.size(i) + coord[i]
+            part = part.narrow(d, idx * local_shape[d], local_shape[d])
+        local = torch.empty(local_shape, dtype=tensor.dtype, device=device)
+        if not local.is_meta:
+            local.copy_(part)
+        out = DTensor.from_local(local, self.mesh, placements, run_check=False,
+                                 shape=torch.Size(shape),
+                                 stride=_contiguous_stride(shape))
+        return out.requires_grad_(tensor.requires_grad)
 
     def place(self, struct, device=None):
         """A DTensor of ``struct``'s global shape and dtype (``struct`` is
@@ -274,12 +295,16 @@ class NamedSharding:
         shape = tuple(struct.shape)
         local = torch.empty(self.shard_shape(shape), dtype=struct.dtype,
                             device=struct.device if device is None else device)
-        stride = [1] * len(shape)
-        for i in range(len(shape) - 2, -1, -1):
-            stride[i] = stride[i + 1] * shape[i + 1]
         return DTensor.from_local(local, self.mesh, self.placements(),
                                   run_check=False, shape=torch.Size(shape),
-                                  stride=tuple(stride))
+                                  stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
 
 
 def fitted_shardings(mesh, spec_tree, struct_tree) -> Any:

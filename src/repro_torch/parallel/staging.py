@@ -48,11 +48,15 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid_lm, mamba_lm, moe_lm, vlm
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import shard_act, softmax_cross_entropy, unstack
+from repro_torch.models.common import (
+    pin_grad, replicate_dims, shard_act, softmax_cross_entropy, unstack,
+)
+from repro_torch.parallel.sharding import NamedSharding, fit_spec
 from repro_torch.train.optimizer import tree_map
 
 Params = Dict[str, Any]
@@ -76,11 +80,40 @@ class Staging:
         return self.run(self.layers(staged1, consts1), shared, carry, io_t)
 
 
+def microbatches(x: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """The ``n`` equal slices of ``x``'s leading (batch) dim: slice ``i`` is
+    rows ``[i*b, (i+1)*b)``, as the reference's reshape gives (views of a
+    plain tensor, no copy).  A DTensor sharded on that dim is gathered
+    once, and each microbatch is sharded over the batch's mesh dims that
+    divide its rows and replicated over the rest, as ``fit_spec`` places
+    any dim.  Each microbatch then holds the reference's rows, which MoE
+    routing capacity, counted per microbatch, depends on."""
+    if not (isinstance(x, DTensor) and Shard(0) in x.placements):
+        return list(x.reshape(n, x.shape[0] // n, *x.shape[1:]))
+    mesh = x.device_mesh
+    axes = tuple(name for name, p in zip(mesh.mesh_dim_names, x.placements)
+                 if p == Shard(0))
+    whole = replicate_dims(x, [0])
+    b = x.shape[0] // n
+    spec = fit_spec(mesh, (axes, *([None] * (x.dim() - 1))), (b, *x.shape[1:]))
+    to = NamedSharding(mesh, spec).placements()
+    return [whole[i * b:(i + 1) * b].redistribute(mesh, to) for i in range(n)]
+
+
+def _cast(v, dt):
+    """A stacked tensor, or a list of per-microbatch DTensors, cast to
+    ``dt``.  A DTensor's cotangent is brought to its placements first
+    (``pin_grad``): one that arrives ``Partial`` (the input of a
+    column-parallel projection) is summed before the casts' backward
+    rounds it to bf16, as the unsharded path rounds the whole sum."""
+    return [pin_grad(x.to(dt)) for x in v] if isinstance(v, list) else v.to(dt)
+
+
 def _with_dtype(mk, sh, b, n, dt):
     io = mk(sh, b, n)
-    io["h_in"] = io["h_in"].to(dt)
+    io["h_in"] = _cast(io["h_in"], dt)
     if "img" in io:
-        io["img"] = io["img"].to(dt)
+        io["img"] = _cast(io["img"], dt)
     return io
 
 
@@ -127,6 +160,12 @@ def _device(params: Params) -> torch.device:
 
 def _make_io_lm(cfg: ArchConfig, shared, batch, n_mb, act_dtype=torch.bfloat16):
     tokens, labels = batch["tokens"], batch["labels"]
+    if isinstance(tokens, DTensor):
+        # per microbatch, each the reference's rows, each embedded input
+        # placed by the rules' (batch, seq, embed)
+        return {"h_in": [tf.embed_tokens(cfg, {"embed": shared["embed"]}, t)
+                         .to(act_dtype) for t in microbatches(tokens, n_mb)],
+                "labels": microbatches(labels, n_mb)}
     B, T = tokens.shape
     mb = B // n_mb
     h = tf.embed_tokens(cfg, {"embed": shared["embed"]}, tokens)
@@ -346,10 +385,9 @@ def _stage_vlm(cfg: ArchConfig, S: int, params: Params,
 
     def make_io(shared_, batch, n_mb):
         io = _make_io_lm(cfg, shared_, batch, n_mb)
-        B = batch["tokens"].shape[0]
-        mb = B // n_mb
-        img = batch["image_embeds"].to(io["h_in"].dtype)
-        io["img"] = img.reshape(n_mb, mb, *img.shape[1:])
+        img = batch["image_embeds"].to(io["h_in"][0].dtype)
+        io["img"] = (microbatches(img, n_mb) if isinstance(img, DTensor)
+                     else img.reshape(n_mb, img.shape[0] // n_mb, *img.shape[1:]))
         return io
 
     def layers(staged1, consts1):

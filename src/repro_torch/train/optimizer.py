@@ -101,7 +101,7 @@ def _step_counter(like: torch.Tensor) -> torch.Tensor:
     return zero
 
 
-def _placed_like(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+def placed_like(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """``g`` redistributed to ``ref``'s placements when both are DTensors
     and they differ; else ``g``."""
     if (isinstance(g, DTensor) and isinstance(ref, DTensor)
@@ -125,7 +125,7 @@ def make_adamw(cfg: OptimizerConfig):
         """Consumes ``grads`` (their f32 leaves are scaled in place).
         ``grad_norm`` replaces ``global_norm(grads)`` for clipping where
         ``grads`` is one part of a larger tree (a pipeline stage's)."""
-        grads = tree_map(_placed_like, grads, state.mu)
+        grads = tree_map(placed_like, grads, state.mu)
         step = state.step + 1
         gn = global_norm(grads) if grad_norm is None else grad_norm
         scale = (torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)

@@ -16,10 +16,14 @@ Counterpart of ``repro/train/step.py``:
 ``make_train_step`` on DTensor params computes on DTensors: the mesh of
 the params is ambient and the activation rules place activations
 (``models.common.sharded_execution``).  ``make_pipeline_train_step(mesh=...)``
-runs one whole stage per rank of the mesh's ``pod`` dim; its other dims
-must be 1 until a stage computes over its ``(data, model)`` sub-mesh, and
-the reference's ``abstract=True`` (dry-run) staging waits for that too
-(ROADMAP.md, Queue 1 item 8).  ``train_shardings`` and
+runs one stage per coordinate of the mesh's ``pod`` dim, each rank on
+DTensors over its ``(data, model)`` sub-mesh (``stage_submesh``), as the
+reference's ``shard_map`` is manual over ``pod`` and leaves ``data`` and
+``model`` to GSPMD: ``place_stage`` cuts each rank's shards of the staging
+from the caller's host params, the transport moves the carry between the
+ranks of a ``pod`` group and reduces the loss sums and shared gradients
+over it.  The reference's ``abstract=True`` (dry-run) staging is not
+ported yet (ROADMAP.md, Queue 1 item 8).  ``train_shardings`` and
 ``pipeline_shardings(staging, mesh)`` give the
 :class:`~repro_torch.parallel.sharding.NamedSharding` trees of the params
 and AdamW state, which ``checkpoint.ckpt.reshard`` and
@@ -27,23 +31,24 @@ and AdamW state, which ``checkpoint.ckpt.reshard`` and
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, generator
 from repro_torch.models import build_model
-from repro_torch.models.common import mesh_of, replicate_dims, sharded_execution
+from repro_torch.models.common import mesh_of, sharded_execution
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.pipeline import (
     DistributedTransport, LocalTransport, pipeline_loss_fn,
 )
-from repro_torch.parallel.staging import build_staging
+from repro_torch.parallel.staging import build_staging, microbatches
 from repro_torch.train.optimizer import (
-    OptimizerConfig, make_optimizer, tree_leaves, tree_map, tree_unflatten,
+    OptimizerConfig, make_optimizer, placed_like, tree_leaves, tree_map,
+    tree_unflatten,
 )
 
 _INT_KEYS = ("tokens", "labels")
@@ -87,26 +92,6 @@ def value_and_grad(loss_fn, params, batch) -> Tuple[torch.Tensor, Dict, Any]:
              for p in tree_leaves(alias)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, grads)
-
-
-def microbatches(x: torch.Tensor, n: int) -> List[torch.Tensor]:
-    """The ``n`` equal slices of ``x``'s leading (batch) dim: slice ``i`` is
-    rows ``[i*b, (i+1)*b)``, as the reference's reshape gives (views of a
-    plain tensor, no copy).  A DTensor sharded on that dim is gathered
-    once, and each microbatch is sharded over the batch's mesh dims that
-    divide its rows and replicated over the rest, as ``fit_spec`` places
-    any dim.  Each microbatch then holds the reference's rows, which MoE
-    routing capacity, counted per microbatch, depends on."""
-    if not (isinstance(x, DTensor) and Shard(0) in x.placements):
-        return list(x.reshape(n, x.shape[0] // n, *x.shape[1:]))
-    mesh = x.device_mesh
-    axes = tuple(name for name, p in zip(mesh.mesh_dim_names, x.placements)
-                 if p == Shard(0))
-    whole = replicate_dims(x, [0])
-    b = x.shape[0] // n
-    spec = shd.fit_spec(mesh, (axes, *([None] * (x.dim() - 1))), (b, *x.shape[1:]))
-    to = shd.NamedSharding(mesh, spec).placements()
-    return [whole[i * b:(i + 1) * b].redistribute(mesh, to) for i in range(n)]
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
@@ -232,6 +217,48 @@ def train_shardings(cfg: ArchConfig, mesh, opt_init, model):
 # ---------------------------------------------------------------------------
 
 
+def stage_submesh(mesh):
+    """(sub-mesh, stage) of this rank on a ``("pod", ...)`` mesh: the mesh
+    of its other dims (``mesh["data", "model"]``) that its stage computes
+    over, and its coordinate on ``pod``, the stage it runs."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names:
+        raise ValueError(f"the mesh has no 'pod' dim: {shd.mesh_axis_sizes(mesh)}")
+    rest = tuple(n for n in names if n != "pod")
+    if not rest:
+        raise ValueError(f"the mesh {names} has no dim for a stage to compute over")
+    return mesh[rest], mesh.get_coordinate()[names.index("pod")]
+
+
+def place_stage(tree, specs, mesh, device: DeviceLike = None):
+    """This rank's part of ``tree``, a staging tree of whole tensors (every
+    stage, on any device: the host's, say) placed by the spec tree ``specs``
+    (``pipeline_shardings``' specs, or ``layout_specs`` of them): each leaf
+    cut to this rank's stage where its spec names ``pod`` (the stage dim,
+    kept with size 1), then to this rank's shard on its sub-mesh
+    (:func:`stage_submesh`) by the rest of the spec, as a DTensor on
+    ``device``.  Only that shard is copied; its local shape is
+    ``NamedSharding(mesh, spec).shard_shape`` of the whole leaf."""
+    from repro_torch.device import resolve_device
+
+    sub, stage = stage_submesh(mesh)
+    n_pod = mesh.size(tuple(mesh.mesh_dim_names).index("pod"))
+    dev = resolve_device(device)
+
+    def one(x, spec):
+        for d, entry in enumerate(spec):
+            if entry == "pod":
+                n = x.shape[d] // n_pod
+                x = x.narrow(d, stage * n, n)
+            elif "pod" in shd._entry_axes(entry):
+                raise ValueError(f"spec {spec} splits dim {d} over 'pod' and "
+                                 "other dims; a stage holds a whole stage dim")
+        spec = tuple(None if e == "pod" else e for e in spec)
+        return shd.NamedSharding(sub, spec).distribute(x, dev)
+
+    return tree_map(one, tree, specs)
+
+
 def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
                              n_stages: int, n_microbatches: int,
                              param_dtype=torch.float32,
@@ -245,14 +272,7 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     opt_state, metrics) takes the gradient of the pipeline's loss over
     ``{"staged", "shared"}`` and applies AdamW to that tree, in place.
     ``transport`` of ``None`` is a
-    :class:`~repro_torch.parallel.pipeline.LocalTransport`; a ``mesh`` (a
-    ``DeviceMesh`` with a ``pod`` dim, as the reference's) gives a
-    ``DistributedTransport`` over its ``pod`` group instead, and the
-    shardings then hold its ``NamedSharding`` trees too.  Each rank runs
-    its stage whole, so every other dim of the mesh must be 1
-    (``ValueError`` otherwise): the reference shards a stage over ``data``
-    and ``model`` through GSPMD, which the port's pipeline does not yet do
-    (ROADMAP.md, Queue 1 item 8).  ``params`` are
+    :class:`~repro_torch.parallel.pipeline.LocalTransport`.  ``params`` are
     in the model's layout, on any device (the host's memory, say); the
     staging's trees are placed on the model's device.  With the local
     transport ``params=None`` means ``model.init`` from a generator seeded 0
@@ -260,18 +280,33 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     ``params``, and only this rank's stage of ``staged`` and ``consts`` (a
     leading dim of 1, copied) and the shared trees reach the device: a
     rank that drew the whole model there would need the memory that a
-    pipeline exists to split."""
+    pipeline exists to split.
+
+    A ``mesh`` (a ``DeviceMesh`` with a ``pod`` dim, as the reference's,
+    and the dims a stage computes over: ``("pod", "data", "model")``) gives
+    a ``DistributedTransport`` over its ``pod`` group, and the shardings
+    then hold its ``NamedSharding`` trees too.  Each rank runs its stage on
+    DTensors over its ``(data, model)`` sub-mesh, as the reference's GSPMD
+    runs a stage's body: ``staged``, ``consts`` and ``shared`` are placed by
+    ``pipeline_shardings`` (:func:`place_stage`: each rank copies its own
+    shards from ``params``), a batch of whole host arrays is cut to this
+    rank's rows of the ``data`` dim, and activations are placed by
+    ``train_act_rules()``.  The gradients are brought to their parameters'
+    placements before the shared ones are summed over ``pod``; AdamW then
+    updates the DTensors where they lie, in whatever layout the caller
+    placed them (``layout_specs``; ``opt_init`` keeps the params'
+    placements).  The sub-mesh path runs the plain path: a kernel refuses
+    a DTensor, so a ``mesh`` with ``use_kernels=True`` raises here."""
+    sub = None
     if mesh is not None:
         if transport is not None:
             raise ValueError("pass a mesh or a transport, not both")
-        sizes = shd.mesh_axis_sizes(mesh)
-        if "pod" not in sizes:
-            raise ValueError(f"the mesh has no 'pod' dim: {sizes}")
-        wide = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
-        if wide:
+        sub, _ = stage_submesh(mesh)
+        if use_kernels:
             raise ValueError(
-                f"mesh dims {wide} would shard a stage, which the pipeline "
-                "step does not do: each rank runs its stage whole")
+                "a stage on a mesh computes on DTensors, which a kernel "
+                "refuses: pass use_kernels=False (the plain path, as the "
+                "reference's mesh pipeline runs its jnp path)")
         transport = DistributedTransport(group=mesh.get_group("pod"))
     model = build_model(cfg, use_kernels=use_kernels, param_dtype=param_dtype,
                         device=device)
@@ -289,28 +324,49 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     staging = build_staging(cfg, n_stages, params, act_dtype=act_dtype,
                             use_kernels=use_kernels)
     del params
-    def place(x):
-        return x[lo:lo + n].to(dev, copy=True) if n < n_stages else x.to(dev)
+    specs = pipeline_shardings(staging)
+    if sub is not None:
+        for name in ("staged", "shared", "consts"):
+            setattr(staging, name, place_stage(getattr(staging, name),
+                                               specs[name], mesh, dev))
+    else:
+        def place(x):
+            return x[lo:lo + n].to(dev, copy=True) if n < n_stages else x.to(dev)
 
-    staging.staged = tree_map(place, staging.staged)
-    staging.consts = tree_map(place, staging.consts)
-    staging.shared = tree_map(lambda x: x.to(dev), staging.shared)
+        staging.staged = tree_map(place, staging.staged)
+        staging.consts = tree_map(place, staging.consts)
+        staging.shared = tree_map(lambda x: x.to(dev), staging.shared)
 
     opt_init, opt_update = make_optimizer(opt_cfg)
     loss_fn = pipeline_loss_fn(staging, n_microbatches, transport)
+    rules = shd.train_act_rules()
 
     def train_step(staged, shared, consts, opt_state, batch):
-        batch = batch_to_device(batch, model.device)
+        batch = (batch_to_device(batch, dev) if sub is None
+                 else _place_batch(batch, sub, dev))
         tree = {"staged": staged, "shared": shared}
-        loss, metrics, grads = value_and_grad(
-            lambda t, b: loss_fn(t["staged"], t["shared"], consts, b), tree, batch)
-        transport.sum_shared_grads(grads["shared"])
-        tree, opt_state, om = opt_update(grads, opt_state, tree,
-                                         grad_norm=transport.grad_norm(grads))
+        with sharded_execution(sub, rules):
+            loss, metrics, grads = value_and_grad(
+                lambda t, b: loss_fn(t["staged"], t["shared"], consts, b),
+                tree, batch)
+            grads = tree_map(placed_like, grads, tree)
+            transport.sum_shared_grads(grads["shared"])
+            tree, opt_state, om = opt_update(grads, opt_state, tree,
+                                             grad_norm=transport.grad_norm(grads))
         return tree["staged"], tree["shared"], opt_state, \
             {"total_loss": loss, **metrics, **om}
 
     return train_step, staging, opt_init, pipeline_shardings(staging, mesh)
+
+
+def _place_batch(batch, sub, dev) -> Dict[str, torch.Tensor]:
+    """A batch on the sub-mesh ``sub``: whole arrays (token ids and labels
+    as int64, on the host) cut to this rank's rows of ``data``; DTensor
+    leaves, already placed, as they are."""
+    host = batch_to_device(batch, torch.device("cpu"))
+    shardings = shd.batch_shardings(sub, host, "data")
+    return {k: x if isinstance(x, DTensor) else shardings[k].distribute(x, dev)
+            for k, x in host.items()}
 
 
 def pipeline_shardings(staging, mesh=None) -> Dict[str, Any]:

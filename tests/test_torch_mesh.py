@@ -327,18 +327,23 @@ def test_pipeline_shardings_on_a_mesh_equal_reference(mesh):
 
 
 def test_pipeline_step_takes_a_mesh_or_a_transport_not_both(mesh):
-    """Also refused: a mesh whose ``data`` or ``model`` dim would shard a
-    stage (each rank runs its stage whole until sharded execution lands),
-    and one without a ``pod`` dim."""
+    """Also refused: a mesh without a ``pod`` dim.  A ``pod`` mesh whose
+    ``data`` or ``model`` dim is above 1 is taken: each rank's stage
+    computes on DTensors over its ``(data, model)`` sub-mesh
+    (``test_torch_pipeline_sharded_*.py`` run it), so the refusal of such a
+    mesh, and its check here, are gone.  A mesh with ``use_kernels`` left
+    on is refused when the step is built: a kernel refuses a DTensor."""
     kw = dict(n_stages=2, n_microbatches=2, device="cpu")
     cfg = get_config("gpt-2b").reduced()
     with pytest.raises(ValueError, match="a mesh or a transport, not both"):
         port_step.make_pipeline_train_step(
             cfg, OptimizerConfig(), **kw, mesh=mesh, transport=LocalTransport())
-    want = ("would shard a stage" if "pod" in mesh.mesh_dim_names
-            else "has no 'pod' dim")
-    with pytest.raises(ValueError, match=want):
-        port_step.make_pipeline_train_step(cfg, OptimizerConfig(), **kw, mesh=mesh)
+    if "pod" not in mesh.mesh_dim_names:
+        with pytest.raises(ValueError, match="has no 'pod' dim"):
+            port_step.make_pipeline_train_step(cfg, OptimizerConfig(), **kw, mesh=mesh)
+    else:       # a stage on DTensors runs the plain path; a kernel refuses them
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            port_step.make_pipeline_train_step(cfg, OptimizerConfig(), **kw, mesh=mesh)
 
 
 # --- ckpt.reshard ------------------------------------------------------------------

@@ -4,9 +4,12 @@ gloo on the CPU, two processes (``torch_mesh_worker.py``) meeting through a
 
 What it holds, for reduced gpt-2b in 2 stages and 2 microbatches (f32):
 - ``make_pipeline_train_step(mesh=...)`` on a ``(2, 1, 1)`` ``("pod",
-  "data", "model")`` mesh runs its stages over the mesh's ``pod`` group: the
-  step's loss and grad norm and the gradients its optimizer receives equal
-  the local transport's (``torch_pipeline_parity.pipeline_grads``), rank r
+  "data", "model")`` mesh runs its stages over the mesh's ``pod`` group,
+  each on DTensors over its 1 x 1 ``(data, model)`` sub-mesh (the worker
+  writes their local tensors): the step's loss and grad norm and the
+  gradients its optimizer receives equal the local transport's on the
+  plain path that a stage on DTensors runs
+  (``torch_pipeline_parity.pipeline_grads(use_kernels=False)``), rank r
   holding stage r of ``staged`` (leading dim 1) and the shared gradients
   summed over both ranks.  Tolerances as ``test_torch_pipeline_step.py``'s
   distributed check (loss rtol 1e-6) and ``torch_pipeline_parity``'s
@@ -81,7 +84,8 @@ def test_pipeline_over_a_pod_mesh_and_reshard_over_two_gloo_ranks(tmp_path):
            **{f"p.{k}": v.numpy() for k, v in pp.items(params).items()},
            **{f"b.{k}": v for k, v in batch.items()}}
     ranks = _run_ranks(tmp_path, inp)
-    st, loss, metrics, grads = pp.pipeline_grads(cfg, params, 2, batch)
+    st, loss, metrics, grads = pp.pipeline_grads(cfg, params, 2, batch,
+                                                 use_kernels=False)
     for r, out in enumerate(ranks):
         what = f"rank {r}"
         assert sorted(out["keys"]) == sorted(

@@ -7,8 +7,10 @@
 (``p.<path>``) and one batch (``b.tokens`` / ``b.labels``).  Rank r:
 
 - builds ``make_pipeline_train_step(mesh=...)`` on a ``(2, 1, 1)``
-  ``("pod", "data", "model")`` mesh and writes its staged and consts trees
-  before the step (``st0.<path>``, ``c0.<path>``) beside ``to_local()`` of
+  ``("pod", "data", "model")`` mesh, whose stage computes on DTensors over
+  its 1 x 1 ``(data, model)`` sub-mesh, and writes the local tensors of its
+  staged and consts trees before the step (``st0.<path>``, ``c0.<path>``),
+  and later of the gradients, beside ``to_local()`` of
   the whole staging resharded onto ``pipeline_shardings(staging, mesh)``
   (``dt.<path>``, ``dc.<path>``), then takes one step and writes its
   metrics (``m.<name>``) and the gradients the optimizer received
@@ -30,6 +32,7 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 import repro_torch.train.step as step_mod
 from repro_torch.api import HarpConfig, compile as api_compile
@@ -46,6 +49,10 @@ from repro_torch.train.optimizer import OptimizerConfig, tree_map
 from torch_pipeline_worker import flatten, unflatten
 
 OPT = dict(lr=1e-3, warmup_steps=3, total_steps=10)
+
+
+def local_copy(x):
+    return (x.to_local() if isinstance(x, DTensor) else x).clone()
 
 
 def capture_grads(sink):
@@ -77,11 +84,12 @@ def main(rank, world, store_file, in_npz, out_npz):
         step, st, opt_init, shardings = step_mod.make_pipeline_train_step(
             cfg, OptimizerConfig(**OPT), n_stages=world,
             n_microbatches=int(inp["n_mb"]), act_dtype=torch.float32,
-            params=params, device="cpu", mesh=mesh)
+            params=params, use_kernels=False, device="cpu", mesh=mesh)
         out = {}
-        # copies: the step updates the staged tree in place
-        flatten(tree_map(torch.clone, st.staged), "st0.", out)
-        flatten(tree_map(torch.clone, st.consts), "c0.", out)
+        # the stage's DTensors on its 1 x 1 (data, model) sub-mesh hold it
+        # whole: their local tensors, copied (the step updates them in place)
+        flatten(tree_map(local_copy, st.staged), "st0.", out)
+        flatten(tree_map(local_copy, st.consts), "c0.", out)
         whole = build_staging(cfg, world, params, act_dtype=torch.float32)
         placed = ckpt.reshard({"staged": whole.staged, "consts": whole.consts},
                               {"staged": shardings["staged"],
@@ -94,8 +102,8 @@ def main(rank, world, store_file, in_npz, out_npz):
         opt = opt_init({"staged": st.staged, "shared": st.shared})
         _, _, _, m = step(st.staged, st.shared, st.consts, opt, batch)
         for k, v in m.items():
-            out[f"m.{k}"] = v.item()
-        flatten(sink["grads"], "g.", out)
+            out[f"m.{k}"] = (v.full_tensor() if isinstance(v, DTensor) else v).item()
+        flatten(tree_map(local_copy, sink["grads"]), "g.", out)
 
         data = make_mesh((2,), ("data",), device_type="cpu")
         tree = {"rows": torch.arange(24, dtype=torch.float32).reshape(8, 3),

@@ -106,10 +106,12 @@ def assert_close(port, ref, *, atol, rtol, norm_rtol, what, through_bf16=()):
             assert rel <= norm_rtol, (what, k, rel)
 
 
-def pipeline_grads(tcfg, params, S, batch):
+def pipeline_grads(tcfg, params, S, batch, use_kernels=True):
     """The port's f32 pipeline (local transport): (staging, loss, metrics,
-    grads over ``{"staged", "shared"}``)."""
-    st = build_staging(tcfg, S, params, act_dtype=torch.float32)
+    grads over ``{"staged", "shared"}``); with ``use_kernels=False`` on the
+    plain path, as a stage on DTensors runs."""
+    st = build_staging(tcfg, S, params, act_dtype=torch.float32,
+                       use_kernels=use_kernels)
     loss_fn = pipeline_loss_fn(st, N_MB)
     loss, metrics, grads = value_and_grad(
         lambda t, b: loss_fn(t["staged"], t["shared"], st.consts, b),
