@@ -3521,8 +3521,10 @@ def run_pipeline_sharded(tree, cfg):
 
 
 # the dry run's cells on the chip machine's host: one per kind the
-# contract names; the dense train cell runs one microbatch scaled by 16
-# (REPRO_FAST_ANALYSIS, the reference's own mode) to fit the phase's time
+# contract names; the train cells run one microbatch scaled by 16
+# (REPRO_FAST_ANALYSIS, the reference's own mode) to fit the phase's time;
+# the last is a pipelined multi-pod train cell, two stages each traced at
+# its own rank
 DRYRUN_CELLS = [
     ("gemma-2b", "train_4k", "single", {"REPRO_FAST_ANALYSIS": "1"}),
     ("gemma-2b", "prefill_32k", "single", {}),
@@ -3532,6 +3534,7 @@ DRYRUN_CELLS = [
     ("granite-moe-1b-a400m", "train_4k", "single", {"REPRO_FAST_ANALYSIS": "1"}),
     ("granite-moe-1b-a400m", "decode_32k", "single", {}),
     ("minitron-8b", "decode_32k", "multi", {}),
+    ("minitron-8b", "train_4k", "multi", {"REPRO_FAST_ANALYSIS": "1"}),
 ]
 
 
@@ -3540,7 +3543,10 @@ def run_dryrun():
     512-rank fake process group, on the host: ``launch.dryrun.run_cell``
     for each of ``DRYRUN_CELLS``, every record ``ok`` and its argument bytes
     the sum of its leaves' ``shard_shape`` bytes (``build_case`` in a fake
-    world of its own).  These are host counts: nothing runs on the card."""
+    world of its own).  A pipelined cell's record holds two ``stages``, each
+    traced at its own rank: each must be ``ok``, hold its own shard bytes
+    and send over ``pod`` (``collective_permute@pod`` > 0).  These are host
+    counts: nothing runs on the card."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun as D
@@ -3554,8 +3560,16 @@ def run_dryrun():
             os.environ.update(env)
             try:
                 rec = D.run_cell(arch, shape, mk, work)
-                with D.fake_world(mk):
-                    want = D.shard_bytes(D.cell_case(arch, shape, mk)[0])
+                ranks = [s["rank"] for s in rec.get("stages", [])] or [0]
+                wants = []
+                for rank in ranks:
+                    with D.fake_world(mk, rank):
+                        wants.append(D.shard_bytes(D.cell_case(arch, shape, mk)[0]))
+                # the top level is the stage with the larger peak, the first
+                # of equal ones, as ``run_cell`` takes it
+                stages = rec.get("stages") or [rec]
+                want = wants[max(range(len(stages)), key=lambda i: stages[i].get(
+                    "memory", {}).get("peak_per_device", 0))]
             finally:
                 for k, v in saved.items():
                     if v is None:
@@ -3575,9 +3589,30 @@ def run_dryrun():
                  flops_per_device=rec.get("flops_per_device"),
                  collectives=rec.get("collectives"),
                  collectives_by_mesh_dim=rec.get("collectives_by_mesh_dim"),
-                 collective_bytes_per_device=rec.get("collective_bytes_per_device"))
+                 collective_bytes_per_device=rec.get("collective_bytes_per_device"),
+                 stages=[dict(stage=st["stage"], rank=st["rank"], trace_s=st["trace_s"],
+                              peak_per_device=st["memory"]["peak_per_device"],
+                              argument_bytes=st["memory"]["argument_bytes"],
+                              argument_bytes_from_shard_shapes=w,
+                              alias_bytes=st["memory"]["alias_bytes"],
+                              temp_bytes=st["memory"]["temp_bytes"],
+                              flops_per_device=st.get("flops_per_device"),
+                              collective_permute_pod=st.get(
+                                  "collectives_by_mesh_dim", {}).get("collective_permute@pod"),
+                              all_reduce_pod=st.get(
+                                  "collectives_by_mesh_dim", {}).get("all_reduce@pod"),
+                              collective_bytes_per_device=st.get("collective_bytes_per_device"))
+                         for st, w in zip(rec.get("stages", []), wants)] or None)
             if not rec["ok"] or mem.get("argument_bytes") != want:
                 failed.append((arch, shape, mk, rec.get("error")))
+            if D.pipelined(D.get_config(arch), shape, mk == "multi"):
+                stages = rec.get("stages", [])
+                if len(stages) != 2 or any(
+                        st["memory"]["argument_bytes"] != w
+                        or not st.get("collectives_by_mesh_dim", {}).get(
+                            "collective_permute@pod", 0) > 0
+                        for st, w in zip(stages, wants)):
+                    failed.append((arch, shape, mk, "pipelined stages"))
             if dist.is_initialized():
                 failed.append((arch, shape, mk, "process group left initialised"))
     finally:

@@ -36,7 +36,16 @@ Each cell writes ``results/dryrun_torch/<arch>_<shape>_<mesh>.json``:
   ``collectives_by_mesh_dim`` the bytes by kind and mesh dim
   (``"all_reduce@data"``).  On a ``cpu`` mesh DTensor moves a shard from
   one dim to another by all-gather and chunk, where a ``cuda`` mesh would
-  all-to-all: those count as ``all_gather_into_tensor``.
+  all-to-all: those count as ``all_gather_into_tensor``.  The pipeline's
+  own ``torch.distributed`` calls (``parallel/pipeline.py``'s
+  ``DistributedTransport``) count too: a send or a receive of a carry or
+  its cotangent as ``collective_permute`` (the reference's
+  ``collective-permute``) of the tensor sent or received, an all-reduce
+  of the loss sums, the shared gradients or the norm as ``all_reduce``,
+  both by mesh dim (``"collective_permute@pod"``).
+- ``stages`` (a pipelined cell only): one record per stage, each traced
+  at its own rank (below), with its ``stage``, ``rank``, ``trace_s``,
+  ``memory`` and counts.
 - ``ok``, ``error``, ``traceback``, ``trace_s`` and ``total_s``.
 
 What does not carry over: ``hlo_chars`` (there is no HLO), ``lower_s`` /
@@ -59,10 +68,18 @@ in the reference, used nowhere).
 Decode cells run at ``pos = seq_len - 1``, a host int: the port's decode
 step takes its position as a Python int, where the reference traces an
 int32 scalar, so the argument bytes lack those 4 bytes.  Token batches are
-int32, as the reference's ``input_specs``.  The pipelined multi-pod train
-cells are not built yet (ROADMAP.md, Queue 1 item 8): they return
-``ok: false`` with an error naming that item.  Importing this module
-touches no process-group state.
+int32, as the reference's ``input_specs``.
+
+The multi-pod train cells of every family but audio are the reference's
+pipeline over ``pod`` (``make_pipeline_train_step(abstract=True)``): two
+stages on the ``(2, 16, 16)`` mesh, each computing on DTensors over its
+``(data, model)`` sub-mesh, activations in f32 as the reference's.  In
+one process a rank runs only its own stage, so :func:`run_cell` traces
+such a cell once per stage, each in a fake world of its own at the first
+rank of that stage (rank 0 runs stage 0, rank 256 stage 1).  The record's
+``stages`` holds both; its top-level fields are those of the stage with
+the larger ``peak_per_device``, taken whole: what a device must hold.
+Importing this module touches no process-group state.
 """
 from __future__ import annotations
 
@@ -91,13 +108,11 @@ from repro_torch.serve.step import make_serve_step
 from repro_torch.train.optimizer import (
     OptimizerConfig, OptState, tree_leaves, tree_map,
 )
-from repro_torch.train.step import layout_specs, make_train_step
+from repro_torch.train.step import (
+    layout_specs, make_pipeline_train_step, make_train_step, stage_submesh,
+)
 
 OUT_DIR = "results/dryrun_torch"
-PIPELINE_ITEM = ("the pipelined multi-pod train cells wait for ROADMAP.md "
-                 "Queue 1 item 8 (make_pipeline_train_step(abstract=True) "
-                 "and these cells traced in a fake world; a stage already "
-                 "computes over its (data, model) sub-mesh)")
 
 
 def _knob(name: str, default: str) -> str:
@@ -161,8 +176,8 @@ def build_case(arch: str, shape_name: str, multi_pod: bool,
     batch_structs = input_specs(cfg, shape)
 
     if shape.kind == "train":
-        if multi_pod and cfg.family != "audio":
-            raise NotImplementedError(PIPELINE_ITEM)
+        if pipelined(cfg, shape_name, multi_pod):
+            return _pipeline_case(cfg, mesh, opt_cfg, batch_structs, n_mb)
         rules = shd.train_act_rules()
         if multi_pod:
             rules = dict(rules, batch=("pod", "data"), expert=("pod", "data"))
@@ -235,9 +250,92 @@ def build_case(arch: str, shape_name: str, multi_pod: bool,
                 (pshard, cache_sh, tok_sh), mesh)
 
 
+def pipelined(cfg: ArchConfig, shape_name: str, multi_pod: bool) -> bool:
+    """Whether the cell is the reference's pipeline over ``pod``: a
+    multi-pod train cell of any family but audio, which trains
+    data-parallel across pods."""
+    return (multi_pod and get_shape(shape_name).kind == "train"
+            and cfg.family != "audio")
+
+
+def _pipeline_case(cfg: ArchConfig, mesh, opt_cfg: OptimizerConfig,
+                   batch_structs, n_mb: int) -> Case:
+    """The reference's pipelined multi-pod train cell
+    (``repro/launch/dryrun.py:104-139``): the staging of
+    ``make_pipeline_train_step(abstract=True)`` over the mesh's ``pod``
+    dim, its args ``(staged, shared, consts, opt_state, batch)`` as whole
+    ``meta`` structs placed on the whole mesh: the staged and shared trees
+    and the AdamW state (bf16 moments, an f32 master under
+    ``REPRO_MASTER``) by their rules fitted here, as the reference's
+    launcher fits them, the consts' stage dim on ``pod`` (2 stages on the
+    2-way ``pod``: it divides), the batch over ``data``.  Activations are f32, as the
+    reference's, whose comment says so of an XLA CPU compiler fault: its
+    activation figures, and so these, are 2x a bf16 target.  The reference
+    donates params and state; the port updates them in place, which the
+    record shows as ``alias_bytes``.
+
+    ``fn`` takes each placed leaf's local shard, this rank's own stage,
+    onto the rank's ``(data, model)`` sub-mesh (no copy) and runs the step
+    there, as ``make_pipeline_train_step(mesh=...)`` runs it."""
+    n_stages = shd.mesh_axis_sizes(mesh)["pod"]
+    train_step, staging, _, sh = make_pipeline_train_step(
+        cfg, opt_cfg, n_stages=n_stages, n_microbatches=n_mb,
+        act_dtype=torch.float32, use_kernels=False, device="cpu", mesh=mesh,
+        abstract=True)
+    ptree = {"staged": staging.staged, "shared": staging.shared}
+    specs = {"staged": sh["staged_specs"], "shared": sh["shared_specs"]}
+    opt_struct = _opt_struct(opt_cfg, ptree)
+    fit = lambda tree: shd.fitted_shardings(mesh, specs, tree)
+    opt_sh = OptState(shd.NamedSharding(mesh, ()), fit(opt_struct.mu),
+                      fit(opt_struct.nu),
+                      fit(opt_struct.master) if opt_struct.master is not None
+                      else None)
+    batch_sh = shd.batch_shardings(mesh, batch_structs, "data")
+    sub, _ = stage_submesh(mesh)
+
+    def fn(staged, shared, consts, opt_state, batch):
+        on_sub = lambda tree: _on_stage_submesh(tree, sub)
+        return train_step(on_sub(staged), on_sub(shared), on_sub(consts),
+                          on_sub(opt_state), on_sub(batch))
+
+    psh = fit(ptree)
+    return Case(fn, (staging.staged, staging.shared, staging.consts,
+                     opt_struct, batch_structs),
+                (psh["staged"], psh["shared"], sh["consts"], opt_sh, batch_sh),
+                mesh)
+
+
+def _on_stage_submesh(tree, sub):
+    """A tree of DTensors on a ``("pod", ...)`` mesh as DTensors on this
+    rank's sub-mesh ``sub`` over the other dims: the same local tensors
+    (no copy), the ``pod`` placement dropped, a dim sharded over ``pod``
+    (the stage dim) a stage's share of its global size."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(tree, OptState):
+        return OptState(*(None if part is None else _on_stage_submesh(part, sub)
+                          for part in tree))
+    if isinstance(tree, dict):
+        return {k: _on_stage_submesh(v, sub) for k, v in tree.items()}
+    mesh = tree.device_mesh
+    i = tuple(mesh.mesh_dim_names).index("pod")
+    shape = list(tree.shape)
+    if isinstance(tree.placements[i], Shard):
+        shape[tree.placements[i].dim] //= mesh.size(i)
+    return DTensor.from_local(
+        tree.to_local(), sub, tree.placements[:i] + tree.placements[i + 1:],
+        run_check=False, shape=torch.Size(shape),
+        stride=shd._contiguous_stride(shape))
+
+
 # ---------------------------------------------------------------------------
 # counting
 # ---------------------------------------------------------------------------
+
+# the pipeline's own ``torch.distributed`` calls, as they reach dispatch
+# (``c10d`` ops), by the kind they count as
+_C10D_KINDS = {"send": "collective_permute", "recv_": "collective_permute",
+               "allreduce_": "all_reduce"}
 
 
 def _fake_mode_cls():
@@ -279,27 +377,34 @@ def _fake_mode_cls():
         def _free(self, key):
             self.live -= self._storages.pop(key, 0)
 
+        def count(self, name: str, tensors, group) -> None:
+            n = sum(t.numel() * t.element_size() for t in tensors
+                    if isinstance(t, torch.Tensor))
+            self.colls[name] = self.colls.get(name, 0.0) + float(n)
+            self.coll_counts[name] = self.coll_counts.get(name, 0) + 1
+            if isinstance(group, torch.ScriptObject):     # a ``c10d`` op's group
+                group = torch.distributed.ProcessGroup.unbox(group)
+            group = getattr(group, "group_name", group)
+            key = f"{name}@{self.group_dims.get(group, group)}"
+            self.coll_dims[key] = self.coll_dims.get(key, 0.0) + float(n)
+
         def dispatch(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = super().dispatch(func, types, args, kwargs)
             if any(issubclass(t, DTensor) for t in types):
                 return out          # the global op; its local ops come next
             outs = out if isinstance(out, (list, tuple)) else (out,)
-            if all(t.device.type == "meta" for t in outs if isinstance(t, torch.Tensor)):
-                return out          # structs on ``meta`` (a cache's layout): no device
             packet = func.overloadpacket
+            if func.namespace == "c10d" and packet.__name__ in _C10D_KINDS:
+                # returns a ``Work``: the payload is the tensors sent,
+                # received into or reduced
+                self.count(_C10D_KINDS[packet.__name__], args[0], args[1])
+            elif all(t.device.type == "meta" for t in outs if isinstance(t, torch.Tensor)):
+                return out          # structs on ``meta`` (a cache's layout): no device
             if packet in flop_registry:
                 self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
             if func.namespace == "_c10d_functional" and packet.__name__ != "wait_tensor":
-                name = packet.__name__
-                n = sum(t.numel() * t.element_size() for t in outs
-                        if isinstance(t, torch.Tensor))
-                self.colls[name] = self.colls.get(name, 0.0) + float(n)
-                self.coll_counts[name] = self.coll_counts.get(name, 0) + 1
-                group = kwargs.get("group_name", args[-1])
-                group = getattr(group, "group_name", group)
-                key = f"{name}@{self.group_dims.get(group, group)}"
-                self.coll_dims[key] = self.coll_dims.get(key, 0.0) + float(n)
+                self.count(packet.__name__, outs, kwargs.get("group_name", args[-1]))
             if not func.is_view:
                 ins = [a for a in torch.utils._pytree.tree_leaves((args, kwargs))
                        if isinstance(a, torch.Tensor)]
@@ -435,24 +540,53 @@ def world_size(mesh_kind: str) -> int:
 
 
 @contextlib.contextmanager
-def fake_world(mesh_kind: str):
+def fake_world(mesh_kind: str, rank: int = 0):
     """A ``fake`` process group of the mesh's world size for the body, this
-    process rank 0; an already initialised group of that size is used as
-    it is."""
+    process ``rank``; an already initialised group of that size and rank
+    is used as it is, and destroyed by its owner."""
     import torch.distributed as dist
 
     n = world_size(mesh_kind)
     if dist.is_initialized():
-        if dist.get_world_size() != n:
-            raise RuntimeError(f"a process group of {dist.get_world_size()} "
-                               f"ranks is initialised; the cell needs {n}")
+        if (dist.get_world_size(), dist.get_rank()) != (n, rank):
+            raise RuntimeError(
+                f"a process group of {dist.get_world_size()} ranks is "
+                f"initialised at rank {dist.get_rank()}; the cell needs "
+                f"rank {rank} of {n}")
         yield
         return
-    dist.init_process_group("fake", store=_fake_store(), rank=0, world_size=n)
+    _clear_caches()
+    dist.init_process_group("fake", store=_fake_store(), rank=rank, world_size=n)
     try:
         yield
     finally:
         dist.destroy_process_group()
+        _clear_caches()
+
+
+def _clear_caches() -> None:
+    """Empties the caches that outlive a world, so each world starts as a
+    fresh process does.  DTensor's caches of sharding propagation (the
+    Python one and, where the release has one, the C++ dispatch's) hold
+    the meshes of the ops they propagated, and two ``DeviceMesh`` objects
+    compare equal by their ranks' layout alone, not by this process's rank
+    or its groups: a world at rank 256 would otherwise take from them a
+    sub-mesh of an earlier world at rank 0, with that world's coordinate
+    and group names.  ``FakeTensorMode``'s class-wide dispatch cache
+    changes which decompositions a trace runs, and so its live bytes: a
+    second trace of one cell in one process read a lower peak than the
+    first."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    clears = [getattr(getattr(prop, name, None), "cache_clear", None)
+              for name in ("propagate_op_sharding", "_propagate_tensor_meta_cached")]
+    clears.append(getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None))
+    clears.append(getattr(FakeTensorMode, "cache_clear", None))
+    for clear in clears:
+        if clear is not None:
+            clear()
 
 
 def _fake_store():
@@ -472,6 +606,17 @@ def _fake_store():
                                       extended_api=True,
                                       devices=["cpu", "cuda"])
     return dist.HashStore()
+
+
+def stage_ranks(cfg: ArchConfig, shape_name: str, mesh_kind: str) -> List[int]:
+    """The ranks :func:`run_cell` traces the cell at: ``[0]`` for a cell
+    that every rank runs alike; for a pipelined cell the first rank of
+    each stage (its ``pod`` coordinate, every other coordinate 0), as a
+    rank runs its own stage only."""
+    if not pipelined(cfg, shape_name, mesh_kind == "multi"):
+        return [0]
+    per_pod = world_size("single")        # the multi-pod mesh is (2, 16, 16)
+    return list(range(0, world_size(mesh_kind), per_pod))
 
 
 def cell_case(arch: str, shape_name: str, mesh_kind: str, *,
@@ -505,30 +650,29 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
              out_dir: Optional[str] = OUT_DIR, skip_analysis: bool = False, *,
              cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
     """Build and trace one cell in a fake world of 256 (``single``) or 512
-    (``multi``) ranks; write and return its record.  ``skip_analysis``
-    keeps the memory and drops the counts, as the reference's flag keeps
-    the compile and drops the unrolled passes."""
+    (``multi``) ranks; write and return its record.  A pipelined cell is
+    traced once per stage (:func:`stage_ranks`), each in a world of its
+    own at that stage's rank: the record's ``stages``, and at its top
+    level the stage with the larger peak.  ``skip_analysis`` keeps the
+    memory and drops the counts, as the reference's flag keeps the compile
+    and drops the unrolled passes."""
     rec: Dict[str, Any] = {"arch": arch if cfg is None else cfg.arch_id,
                            "shape": shape_name, "mesh": mesh_kind, "ok": False}
     t0 = time.time()
     try:
-        with fake_world(mesh_kind):
-            case, scale = cell_case(arch, shape_name, mesh_kind, cfg=cfg)
-            res = trace_case(case)
-        rec["trace_s"] = res["trace_s"]
-        rec["memory"] = res["memory"]
+        ranks = stage_ranks(cfg or get_config(arch), shape_name, mesh_kind)
+        stages = []
+        for rank in ranks:
+            with fake_world(mesh_kind, rank):
+                case, scale = cell_case(arch, shape_name, mesh_kind, cfg=cfg)
+                stages.append(_fields(trace_case(case), scale, skip_analysis))
+        if len(stages) > 1:
+            rec.update(max(stages, key=lambda f: f["memory"]["peak_per_device"]))
+            rec["stages"] = [{"stage": s, "rank": r, **f}
+                             for s, (r, f) in enumerate(zip(ranks, stages))]
+        else:
+            rec.update(stages[0])
         rec["ok"] = True
-        if not skip_analysis:
-            rec["analysis_mode"] = "scaled-1pass" if scale > 1 else "eager-1pass"
-            rec["flops_per_device"] = res["flops"] * scale
-            rec["bytes_per_device"] = res["bytes"] * scale
-            rec["collectives"] = {c: b * scale for c, b in res["colls"].items()}
-            rec["collective_counts"] = {c: n * scale
-                                        for c, n in res["coll_counts"].items()}
-            rec["collectives_by_mesh_dim"] = {c: b * scale
-                                              for c, b in res["coll_dims"].items()}
-            rec["collective_bytes_per_device"] = float(
-                sum(rec["collectives"].values()))
     except Exception as e:  # noqa: BLE001 -- the record carries the failure
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-4000:]
@@ -540,6 +684,22 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         with open(path, "w") as f:
             json.dump(rec, f, indent=2)
     return rec
+
+
+def _fields(res: Dict[str, Any], scale: int, skip_analysis: bool) -> Dict[str, Any]:
+    """A record's fields from one :func:`trace_case`, its counts scaled."""
+    out = {"trace_s": res["trace_s"], "memory": res["memory"]}
+    if not skip_analysis:
+        out["analysis_mode"] = "scaled-1pass" if scale > 1 else "eager-1pass"
+        out["flops_per_device"] = res["flops"] * scale
+        out["bytes_per_device"] = res["bytes"] * scale
+        out["collectives"] = {c: b * scale for c, b in res["colls"].items()}
+        out["collective_counts"] = {c: n * scale
+                                    for c, n in res["coll_counts"].items()}
+        out["collectives_by_mesh_dim"] = {c: b * scale
+                                          for c, b in res["coll_dims"].items()}
+        out["collective_bytes_per_device"] = float(sum(out["collectives"].values()))
+    return out
 
 
 def cell_file(arch: str, shape_name: str, mesh_kind: str, *,
@@ -565,6 +725,15 @@ def summary(rec: Dict[str, Any]) -> str:
         line += (f"\n  peak/device: {rec['memory']['peak_per_device'] / 2**30:.2f} GiB, "
                  f"flops/device: {rec['flops_per_device']:.3e}, "
                  f"collective B/device: {rec['collective_bytes_per_device']:.3e}")
+    for st in rec.get("stages", []) if rec.get("ok") else []:
+        mem = st["memory"]
+        line += (f"\n  stage {st['stage']} (rank {st['rank']}): peak/device "
+                 f"{mem['peak_per_device']} B, arguments {mem['argument_bytes']} B")
+        if "collectives_by_mesh_dim" in st:
+            line += (f", collective_permute@pod "
+                     f"{st['collectives_by_mesh_dim'].get('collective_permute@pod', 0.0)} B, "
+                     f"collective B/device {st['collective_bytes_per_device']}")
+        line += f", trace {st['trace_s']}s"
     return line
 
 

@@ -22,8 +22,9 @@ reference's ``shard_map`` is manual over ``pod`` and leaves ``data`` and
 ``model`` to GSPMD: ``place_stage`` cuts each rank's shards of the staging
 from the caller's host params, the transport moves the carry between the
 ranks of a ``pod`` group and reduces the loss sums and shared gradients
-over it.  The reference's ``abstract=True`` (dry-run) staging is not
-ported yet (ROADMAP.md, Queue 1 item 8).  ``train_shardings`` and
+over it.  ``abstract=True`` is the reference's dry-run staging: built from
+``meta`` structs and placed nowhere (``launch/dryrun.py`` fits the
+shardings and places the arguments).  ``train_shardings`` and
 ``pipeline_shardings(staging, mesh)`` give the
 :class:`~repro_torch.parallel.sharding.NamedSharding` trees of the params
 and AdamW state, which ``checkpoint.ckpt.reshard`` and
@@ -39,7 +40,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, generator
-from repro_torch.models import build_model
+from repro_torch.models import build_model, param_specs
 from repro_torch.models.common import mesh_of, sharded_execution
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.pipeline import (
@@ -265,7 +266,7 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
                              act_dtype=torch.bfloat16,
                              params: Any = None, use_kernels: bool = True,
                              device: DeviceLike = None, transport=None,
-                             mesh=None):
+                             mesh=None, abstract: bool = False):
     """Returns (train_step, staging, opt_init, shardings).
 
     train_step(staged, shared, consts, opt_state, batch) -> (staged, shared,
@@ -296,7 +297,15 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     updates the DTensors where they lie, in whatever layout the caller
     placed them (``layout_specs``; ``opt_init`` keeps the params'
     placements).  The sub-mesh path runs the plain path: a kernel refuses
-    a DTensor, so a ``mesh`` with ``use_kernels=True`` raises here."""
+    a DTensor, so a ``mesh`` with ``use_kernels=True`` raises here.
+
+    ``abstract=True`` (the dry run, as the reference's) builds the staging
+    from ``models.param_specs`` on ``meta`` and allocates nothing: the
+    staging's trees stay whole ``meta`` structs (every stage, the stage
+    dim leading), nothing is placed, and the shardings are
+    ``pipeline_shardings(staging, mesh)``, unfitted, as the reference's:
+    the caller (the dry run) fits them and places the arguments; the step
+    takes them as any other."""
     sub = None
     if mesh is not None:
         if transport is not None:
@@ -314,7 +323,12 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
     transport = LocalTransport() if transport is None else transport
     stages = transport.stage_ids(n_stages)
     lo, n = stages[0], len(stages)
-    if params is None:
+    if abstract:
+        if params is not None:
+            raise ValueError("abstract=True builds the staging from shape "
+                             "structs: pass no params")
+        params = param_specs(cfg, param_dtype=param_dtype)
+    elif params is None:
         if n < n_stages:
             raise ValueError(
                 f"a rank holding {n} of {n_stages} stages takes the model's "
@@ -325,7 +339,9 @@ def make_pipeline_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig, *,
                             use_kernels=use_kernels)
     del params
     specs = pipeline_shardings(staging)
-    if sub is not None:
+    if abstract:
+        pass                # the caller places the arguments
+    elif sub is not None:
         for name in ("staged", "shared", "consts"):
             setattr(staging, name, place_stage(getattr(staging, name),
                                                specs[name], mesh, dev))

@@ -13,8 +13,11 @@ step traced under ``FakeTensorMode``: nothing is allocated.
 - for a dense config whose widths divide the mesh, the per-device FLOPs of
   the prefill cell times 256 equal the same step's FLOPs on a 1 x 1 mesh
   (the whole step on one rank) within 1 %;
-- a pipelined multi-pod train cell comes back ``ok: false`` with an error
-  naming ROADMAP.md Queue 1 item 8, and no record of a fallback layout;
+- a pipelined multi-pod train cell comes back ``ok`` with its two stages
+  and the pipeline's sends over ``pod``, and names no queue item (the
+  test's name, ``..._names_item_8``, stays from when the cell was refused
+  naming ROADMAP.md Queue 1 item 8, so that its id runs on; its checks
+  in full are ``test_torch_dryrun_pipelined.py``'s);
 - a kernel entry point handed a DTensor raises, where it would otherwise
   take the plain version of a CPU tensor.
 
@@ -23,6 +26,7 @@ stay inside the file's time.  The families' cells are in
 ``test_torch_dryrun_families.py``.
 """
 import dataclasses
+import json
 import math
 
 import pytest
@@ -110,9 +114,15 @@ def test_fast_analysis_scales_one_microbatch(monkeypatch):
 
 
 def test_pipelined_multi_pod_train_cell_names_item_8(tmp_path):
+    """The name stays from when this cell was refused with an error naming
+    ROADMAP.md Queue 1 item 8; that item is done, so the cell is traced,
+    each of its two stages at its own rank, and names no item."""
     rec = D.run_cell("minitron-8b", "train_4k", "multi", str(tmp_path), cfg=DENSE)
-    assert rec["ok"] is False
-    assert "Queue 1 item 8" in rec["error"] and "memory" not in rec
+    assert rec["ok"] is True, rec.get("traceback")
+    assert "error" not in rec and "Queue 1" not in json.dumps(rec)
+    assert len(rec["stages"]) == 2
+    assert rec["collectives_by_mesh_dim"]["collective_permute@pod"] > 0
+    assert (tmp_path / "minitron-8b-smoke_train_4k_multi.json").exists()
 
 
 def test_all_cells_are_the_assigned_archs_shapes_and_meshes():
